@@ -3,15 +3,18 @@
 The PyTorch counterpart of ``float_tpu``, laid out module for module so
 each function's twin is easy to find:
 
-- ``ops``      primitives (upfirdn2d, modulated conv, warp, ODE, ...)
+- ``config``   the pipeline's configuration dataclasses and constants
+- ``ops``      primitives (upfirdn2d, modulated conv, warps, ODE, 4:2:0
+               wire codec, ...)
 - ``kernels``  hand-written CUDA kernels for Hopper (``csrc/``), their
                build step and their ctypes wrappers
 - ``models``   networks (motion-AE encoder, synthesis, wav2vec2, FMT)
                and the synthetic-weight initialiser
-- ``runtime``  the pipeline stages (encode / sample / decode)
+- ``runtime``  the pipeline stages (encode / sample / decode) and the
+               host-delivery entry points (decode to host, streaming,
+               batches of clips)
 
-The package imports ``torch`` and never ``jax``; configuration is shared
-with ``float_tpu.config``, which is free of JAX.
+The package imports ``torch`` and never ``jax`` nor ``float_tpu``.
 """
 
 __version__ = "0.1.0"

@@ -1,46 +1,50 @@
-"""ctypes wrapper of the shared-feature bilinear warp kernel
-(``csrc/warp_shared.cu``).  The plain PyTorch version of the same function
-is ``float_torch.ops.warp.warp_shared_ref``."""
+"""ctypes wrappers of the bilinear warp kernels of ``csrc/warp_shared.cu``:
+K1 (one map shared by the frames, ``warp_shared_cuda``) and K3 (one map
+per frame, ``warp_per_frame_cuda``).  Their plain PyTorch versions are
+``float_torch.ops.warp.warp_shared_ref`` and ``warp_per_frame_ref``."""
 from __future__ import annotations
 
 import ctypes
 
 import torch
 
-from . import LAUNCHES
+from . import LAUNCH_SHAPES, LAUNCHES
 from .build import load
 
-NAME = "warp_shared"
-_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+LIB = "warp_shared"
+DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 _INT_MAX = 2 ** 31 - 1
 
 
 def _lib() -> ctypes.CDLL:
     # every pointer and the stream as c_void_p: undeclared, ctypes would
     # pass a Python int as a 32-bit int and cut the pointer
-    lib = load(NAME)
-    lib.warp_shared_launch.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.warp_shared_launch.restype = ctypes.c_int
+    lib = load(LIB)
+    for fn in (lib.warp_shared_launch, lib.warp_per_frame_launch):
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
     lib.warp_shared_error_string.argtypes = [ctypes.c_int]
     lib.warp_shared_error_string.restype = ctypes.c_char_p
     return lib
 
 
-def warp_shared_cuda(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """feat (1, H, W, C) bf16|f32 NHWC-contiguous, grid (B, H, W, 2) f32
-    contiguous, both on one CUDA device -> (B, H, W, C) in feat's dtype.
-    Raises on anything else."""
+def check_warp_inputs(name: str, feat: torch.Tensor, grid: torch.Tensor,
+                      feat_batch: int) -> None:
+    """Raise unless feat (feat_batch, H, W, C) bf16|f32 and grid
+    (B, H, W, 2) f32 are contiguous on one CUDA device, feat 16-byte and
+    grid 8-byte aligned, and C a whole number of 16-byte vectors."""
     if not (feat.is_cuda and grid.is_cuda and feat.device == grid.device):
-        raise ValueError(f"warp_shared_cuda needs feat and grid on one CUDA "
-                         f"device, got {feat.device} and {grid.device}")
-    if feat.dtype not in _DTYPE_CODE or grid.dtype != torch.float32:
-        raise TypeError(f"warp_shared_cuda takes bf16/f32 feat and f32 "
-                        f"grid, got {feat.dtype} and {grid.dtype}")
-    if feat.ndim != 4 or feat.shape[0] != 1:
-        raise ValueError(f"feat must be (1, H, W, C), got {tuple(feat.shape)}")
+        raise ValueError(f"{name} needs feat and grid on one CUDA device, "
+                         f"got {feat.device} and {grid.device}")
+    if feat.dtype not in DTYPE_CODE or grid.dtype != torch.float32:
+        raise TypeError(f"{name} takes bf16/f32 feat and f32 grid, got "
+                        f"{feat.dtype} and {grid.dtype}")
+    if feat.ndim != 4 or feat.shape[0] != feat_batch:
+        raise ValueError(f"feat must be ({feat_batch}, H, W, C), got "
+                         f"{tuple(feat.shape)}")
     _, h, w, c = feat.shape
     if grid.ndim != 4 or tuple(grid.shape[1:]) != (h, w, 2):
         raise ValueError(f"grid must be (B, {h}, {w}, 2), got "
@@ -53,21 +57,39 @@ def warp_shared_cuda(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
         raise ValueError("feat and grid must be contiguous (NHWC)")
     if feat.data_ptr() % 16 or grid.data_ptr() % 8:
         raise ValueError("feat must be 16-byte and grid 8-byte aligned")
-    b = grid.shape[0]
-    if max(b, h, w, c) > _INT_MAX:
+    if max(grid.shape[0], h, w, c) > _INT_MAX:
         raise ValueError("dimension too large")
+
+
+def _launch(name: str, feat: torch.Tensor, grid: torch.Tensor,
+            feat_batch: int) -> torch.Tensor:
+    check_warp_inputs(name, feat, grid, feat_batch)
+    b = grid.shape[0]
+    _, h, w, c = feat.shape
     out = torch.empty((b, h, w, c), dtype=feat.dtype, device=feat.device)
     if out.numel() == 0:
         return out
     lib = _lib()
     stream = torch.cuda.current_stream(feat.device).cuda_stream
-    err = lib.warp_shared_launch(feat.data_ptr(), grid.data_ptr(),
-                                 out.data_ptr(), b, h, w, c,
-                                 _DTYPE_CODE[feat.dtype], feat.device.index,
-                                 stream)
+    err = getattr(lib, f"{name}_launch")(
+        feat.data_ptr(), grid.data_ptr(), out.data_ptr(), b, h, w, c,
+        DTYPE_CODE[feat.dtype], feat.device.index, stream)
     if err:
         msg = lib.warp_shared_error_string(err).decode()
-        raise RuntimeError(f"warp_shared launch failed: CUDA error {err} "
-                           f"({msg})")
-    LAUNCHES[NAME] += 1
+        raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
+    LAUNCHES[name] += 1
+    LAUNCH_SHAPES[(name, b, h, w, c)] += 1
     return out
+
+
+def warp_shared_cuda(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """K1: feat (1, H, W, C) shared by the frames, grid (B, H, W, 2)
+    -> (B, H, W, C) in feat's dtype.  Raises on anything else."""
+    return _launch("warp_shared", feat, grid, 1)
+
+
+def warp_per_frame_cuda(feat: torch.Tensor,
+                        grid: torch.Tensor) -> torch.Tensor:
+    """K3: feat (B, H, W, C), frame b warped by grid[b] (B, H, W, 2)
+    -> (B, H, W, C) in feat's dtype.  Raises on anything else."""
+    return _launch("warp_per_frame", feat, grid, grid.shape[0])

@@ -1,19 +1,27 @@
-"""Bilinear flow warping of a shared feature map (twin of the decode's use
-of ``float_tpu.ops.warp`` / ``ops.nhwc.warp_cl``).
+"""Bilinear flow warping of the decode's feature maps (twin of the
+decode's use of ``float_tpu.ops.warp`` / ``ops.nhwc.warp_cl``).
 
 Semantics: ``F.grid_sample`` with bilinear taps, ``padding_mode='zeros'``
-and ``align_corners=False`` (reference styledecoder.py:423), applied to
-ONE feature map shared by every frame of a decode chunk.
+and ``align_corners=False`` (reference styledecoder.py:423).  Three forms,
+each a plain PyTorch version beside a dispatcher:
 
-``warp_shared`` dispatches on where the tensors lie: CPU tensors take the
-plain PyTorch version ``warp_shared_ref``; CUDA tensors take the
-hand-written kernel (``float_torch.kernels.warp_shared``), which raises
-on inputs it does not take.  Neither returns the TPU kernels' overflow
-flags: both are exact for any displacement.
+- ``warp_shared``    ONE feature map (1, H, W, C) shared by the B frames of
+                     a decode chunk (K1, ``kernels/csrc/warp_shared.cu``);
+- ``warp_per_frame`` B feature maps (B, H, W, C), one per frame (K3, the
+                     per-frame entry of the same CUDA source);
+- ``warp_rgb``       the shared warp contracted with the last level's 1×1
+                     ToRGB weight (3, C) before any rounding (K2,
+                     ``kernels/csrc/warp_rgb.cu``).
+
+Each dispatcher takes the plain version for CPU tensors and the
+hand-written kernel for CUDA tensors; a kernel raises on inputs it does
+not take.  None returns the TPU kernels' overflow flags: all are exact for
+any displacement.
 """
 from __future__ import annotations
 
 import functools
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -35,14 +43,13 @@ def identity_grid(size: int, device=None) -> torch.Tensor:
     return torch.from_numpy(_identity_grid_np(size)).to(device)
 
 
-def warp_shared_ref(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Plain version: feat (1, H, W, C), grid (B, H, W, 2) xy in [-1, 1]
-    -> (B, H, W, C) in feat's dtype, accumulated in f32.
-
-    Taps outside the image contribute 0; coordinates follow
-    align_corners=False: ((g + 1) * size - 1) / 2."""
-    _, h, w, c = feat.shape
-    f = feat[0].float().reshape(h * w, c)
+def _warp_f32(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """feat (1 or B, H, W, C), grid (B, H, W, 2) -> (B, H, W, C) f32 sums
+    of the four taps, each product and sum rounded in f32 in this order
+    (the CUDA kernels round the same way)."""
+    bf, h, w, c = feat.shape
+    b = grid.shape[0]
+    f = feat.float().reshape(bf * h * w, c)
     gx = grid[..., 0].float()
     gy = grid[..., 1].float()
     fx = ((gx + 1.0) * w - 1.0) * 0.5
@@ -51,6 +58,9 @@ def warp_shared_ref(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     y0 = torch.floor(fy)
     tx = fx - x0
     ty = fy - y0
+    base = None
+    if bf > 1:
+        base = (torch.arange(b, device=grid.device) * (h * w))[:, None, None]
     out = None
     for dy, wy in ((0, 1.0 - ty), (1, ty)):
         yy = y0 + dy
@@ -58,17 +68,98 @@ def warp_shared_ref(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
             xx = x0 + dx
             valid = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
             idx = torch.where(valid, yy * w + xx, 0.0).long()
+            if base is not None:
+                idx = idx + base
             wgt = torch.where(valid, wy * wx, 0.0)
             term = f[idx] * wgt[..., None]
             out = term if out is None else out + term
-    return out.to(feat.dtype)
+    return out
+
+
+def _check_grid(feat: torch.Tensor, grid: torch.Tensor, batch: int) -> None:
+    if feat.ndim != 4 or feat.shape[0] != batch:
+        raise ValueError(f"feat must be ({batch}, H, W, C), got "
+                         f"{tuple(feat.shape)}")
+    if grid.ndim != 4 or tuple(grid.shape[1:]) != (*feat.shape[1:3], 2):
+        raise ValueError(f"grid must be (B, H, W, 2) with feat's H, W, got "
+                         f"{tuple(grid.shape)}")
+
+
+def warp_shared_ref(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Plain version of K1: feat (1, H, W, C), grid (B, H, W, 2) xy in
+    [-1, 1] -> (B, H, W, C) in feat's dtype, accumulated in f32.
+
+    Taps outside the image contribute 0; coordinates follow
+    align_corners=False: ((g + 1) * size - 1) / 2."""
+    _check_grid(feat, grid, 1)
+    return _warp_f32(feat, grid).to(feat.dtype)
+
+
+def warp_per_frame_ref(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3: frame b's map feat[b] (B, H, W, C) warped by
+    grid[b] (B, H, W, 2) -> (B, H, W, C) in feat's dtype."""
+    _check_grid(feat, grid, grid.shape[0])
+    return _warp_f32(feat, grid).to(feat.dtype)
+
+
+def warp_rgb_ref(feat: torch.Tensor, grid: torch.Tensor,
+                 wk: torch.Tensor) -> torch.Tensor:
+    """Plain version of K2: the f32 warp sums of the shared map feat
+    (1, H, W, C) by grid (B, H, W, 2), contracted with wk (3, C) f32, then
+    cast to feat's dtype -> (B, H, W, 3).  The order of
+    ``shift_warp_v2._kernel``'s ToRGB epilogue: no rounding between the
+    warp and the contraction."""
+    _check_grid(feat, grid, 1)
+    if tuple(wk.shape) != (3, feat.shape[-1]):
+        raise ValueError(f"wk must be (3, {feat.shape[-1]}), got "
+                         f"{tuple(wk.shape)}")
+    return (_warp_f32(feat, grid) @ wk.float().t()).to(feat.dtype)
+
+
+def _on_cpu(*ts: torch.Tensor) -> bool:
+    return all(t.device.type == "cpu" for t in ts)
 
 
 def warp_shared(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Warp the shared NHWC map ``feat`` (1, H, W, C) by ``grid``
     (B, H, W, 2): the plain version on CPU tensors, the CUDA kernel
     otherwise."""
-    if feat.device.type == "cpu" and grid.device.type == "cpu":
+    if _on_cpu(feat, grid):
         return warp_shared_ref(feat, grid)
     from ..kernels.warp_shared import warp_shared_cuda
     return warp_shared_cuda(feat, grid)
+
+
+def warp_per_frame(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Warp each frame's NHWC map ``feat`` (B, H, W, C) by its ``grid``
+    (B, H, W, 2): the plain version on CPU tensors, the CUDA kernel
+    otherwise."""
+    if _on_cpu(feat, grid):
+        return warp_per_frame_ref(feat, grid)
+    from ..kernels.warp_shared import warp_per_frame_cuda
+    return warp_per_frame_cuda(feat, grid)
+
+
+def warp_rgb(feat: torch.Tensor, grid: torch.Tensor,
+             wk: torch.Tensor) -> torch.Tensor:
+    """Warp the shared map ``feat`` (1, H, W, C) by ``grid`` (B, H, W, 2)
+    and contract the channels with ``wk`` (3, C) -> (B, H, W, 3): the
+    plain version on CPU tensors, the CUDA kernel otherwise."""
+    if _on_cpu(feat, grid, wk):
+        return warp_rgb_ref(feat, grid, wk)
+    from ..kernels.warp_rgb import warp_rgb_cuda
+    return warp_rgb_cuda(feat, grid, wk)
+
+
+class Warps(NamedTuple):
+    """The three warp forms the synthesis decode calls."""
+    shared: Callable
+    per_frame: Callable
+    rgb: Callable
+
+
+# The dispatchers (kernels on CUDA tensors), and the plain versions, which
+# a caller passes to hold a decode through the kernels against one through
+# plain PyTorch on the same device.
+DISPATCH = Warps(warp_shared, warp_per_frame, warp_rgb)
+PLAIN = Warps(warp_shared_ref, warp_per_frame_ref, warp_rgb_ref)

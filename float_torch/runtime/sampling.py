@@ -74,19 +74,21 @@ def sample_motion_chunk(fmt_params, r_s, wa_t, we_t, carry, x0, *,
     return sample_t, (sample_t[:, -prev:], wa_t[:, -prev:], new_prev_we)
 
 
-def sample_motion_latents(fmt_params, r_s, wa, we, *, cfg: FloatConfig,
-                          a_cfg_scale=None, e_cfg_scale=None,
-                          r_cfg_scale=None, nfe: Optional[int] = None,
-                          ode_method: Optional[str] = None,
-                          cfg_mode: Optional[str] = None,
-                          generator: Optional[torch.Generator] = None,
-                          noise=None):
-    """Motion latents r_d (B, T, dim_w) for T = wa.shape[1] frames.
+def sample_motion_chunks(fmt_params, r_s, wa, we, *, cfg: FloatConfig,
+                         a_cfg_scale=None, e_cfg_scale=None,
+                         r_cfg_scale=None, nfe: Optional[int] = None,
+                         ode_method: Optional[str] = None,
+                         cfg_mode: Optional[str] = None,
+                         generator: Optional[torch.Generator] = None,
+                         noise=None):
+    """Yield the motion latents of each sampler chunk in order, each
+    (B, clip, dim_w); the last one runs past T = wa.shape[1] on edge-padded
+    conditions.
 
     Chunk noise comes from ``generator`` (drawn in f32 on wa's device, one
-    chunk after another, then cast to wa's dtype) or from ``noise``
-    (n_chunks, B, clip, dim_w), which lets a test feed the JAX sampler and
-    this one the same numbers."""
+    chunk after another just before that chunk is integrated, then cast to
+    wa's dtype) or from ``noise`` (n_chunks, B, clip, dim_w), which lets a
+    test feed the JAX sampler and this one the same numbers."""
     a_s = cfg.a_cfg_scale if a_cfg_scale is None else a_cfg_scale
     e_s = cfg.e_cfg_scale if e_cfg_scale is None else e_cfg_scale
     r_sc = cfg.r_cfg_scale if r_cfg_scale is None else r_cfg_scale
@@ -109,7 +111,6 @@ def sample_motion_latents(fmt_params, r_s, wa, we, *, cfg: FloatConfig,
                              f"{(n_chunks, b, clip, dim_w)}")
 
     carry = sampler_init_carry(b, cfg, wa.dtype, wa.device)
-    chunks = []
     for c in range(n_chunks):
         if noise is None:
             x0 = torch.randn((b, clip, dim_w), generator=generator,
@@ -122,5 +123,12 @@ def sample_motion_latents(fmt_params, r_s, wa, we, *, cfg: FloatConfig,
             fmt_params, r_s, wa_p[:, sl], we_p[:, sl] if dynamic else we,
             carry, x0, cfg=cfg, a_cfg_scale=a_s, e_cfg_scale=e_s,
             r_cfg_scale=r_sc, nfe=nfe, ode_method=method, cfg_mode=cfg_mode)
-        chunks.append(sample_t)
-    return torch.cat(chunks, dim=1)[:, :t_frames]
+        yield sample_t
+
+
+def sample_motion_latents(fmt_params, r_s, wa, we, **kw):
+    """Motion latents r_d (B, T, dim_w) for T = wa.shape[1] frames: the
+    chunks of ``sample_motion_chunks`` (same keywords) joined and trimmed
+    to T."""
+    chunks = list(sample_motion_chunks(fmt_params, r_s, wa, we, **kw))
+    return torch.cat(chunks, dim=1)[:, :wa.shape[1]]

@@ -56,13 +56,13 @@ def test_pipeline_refuses_incomplete_params():
     params = t_init.init_pipeline(TINY, TINY_W2V, TINY_SER, seed=0)
     del params["fmt"]["decoder"]["linear"]["bias"]
     with pytest.raises(RuntimeError, match="Missing key"):
-        FloatPipeline(params, TINY, TINY_W2V, TINY_SER)
+        FloatPipeline(params, TINY, TINY_W2V, TINY_SER, device="cpu")
 
 
 def test_synthesis_cast_once():
     pipe = FloatPipeline(t_init.init_pipeline(TINY, TINY_W2V, TINY_SER),
                          TINY.replace(compute_dtype="bfloat16"), TINY_W2V,
-                         TINY_SER)
+                         TINY_SER, device="cpu")
     assert {p.dtype for p in pipe.syn_cast.parameters()} == {torch.bfloat16}
     assert {p.dtype for p in pipe.params.parameters()} == {torch.float32}
     assert not torch.backends.cuda.matmul.allow_tf32

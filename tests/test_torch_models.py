@@ -24,6 +24,17 @@ from torch_parity import (TINY, TINY_SER, TINY_W2V, max_err, port_params,
 ATOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tiny shapes gain nothing from torch's thread pool, whose
+    threads, one per core by default, spin between ops: under the suite's
+    parallel workers they oversubscribe the CPU and slow every file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def synthesis_case():
     """size 128, B=2: five levels (8² … 128²) of warps through the

@@ -25,10 +25,22 @@ ATOL = 1e-4
 STAGES = ("s_r", "r_s_lambda", "r_s", "feats", "wa", "we", "r_d", "frames")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """These tiny shapes gain nothing from torch's thread pool, whose
+    threads, one per core by default, spin between ops: under the suite's
+    parallel workers they oversubscribe the CPU and slow every file."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def pipes():
     return (jp.build_synthetic_pipeline(TINY, TINY_W2V, TINY_SER),
-            tp.build_synthetic_pipeline(TINY, TINY_W2V, TINY_SER))
+            tp.build_synthetic_pipeline(TINY, TINY_W2V, TINY_SER,
+                                        device="cpu"))
 
 
 @pytest.fixture(scope="module")
@@ -121,7 +133,7 @@ def test_windowed_emotion_matches_float_tpu():
     wave = randn(np.random.default_rng(9), 1, 16000, scale=0.1)
     want = jp.build_synthetic_pipeline(cfg, TINY_W2V, TINY_SER) \
         .predict_emotion(jnp.asarray(wave))
-    got = tp.build_synthetic_pipeline(cfg, TINY_W2V, TINY_SER) \
+    got = tp.build_synthetic_pipeline(cfg, TINY_W2V, TINY_SER, device="cpu") \
         .predict_emotion(wave)
     assert max_err(got, want) <= 1e-6
 

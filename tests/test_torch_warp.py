@@ -80,8 +80,13 @@ def test_ref_matches_tpu_kernel_interpret(amp, zoom):
     b, h, c = 8, 128, 32
     feat = jax.random.normal(jax.random.key(0), (1, h, h, c), jnp.bfloat16)
     grid = make_grid(rng, b, h, h, amp, zoom)
+    # one jitted program, waited for before any other JAX op: the
+    # interpret-mode kernel's callbacks dispatch JAX work, and the eager
+    # fixup cond issued while they run can deadlock with them
     with pltpu.force_tpu_interpret_mode():
-        want = warp_shared_feat_v2(feat, jnp.asarray(grid), apply_fixup=True)
+        want = jax.block_until_ready(jax.jit(
+            lambda f, g: warp_shared_feat_v2(f, g, apply_fixup=True))(
+                feat, jnp.asarray(grid)))
     feat_t = torch.from_numpy(np.array(feat, np.float32)).to(torch.bfloat16)
     got = warp_shared_ref(feat_t, torch.from_numpy(grid))
     assert got.dtype == torch.bfloat16 and got.shape == (b, h, h, c)
