@@ -3,29 +3,37 @@
 
 Run from the repository root, with no arguments:
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 It needs one CUDA card and ``nvcc`` (the kernels are built from
 ``float_torch/kernels/csrc`` at first use, one nvcc per source, all at
-once) and imports nothing of JAX nor of ``float_tpu``.  Phases:
+once) and imports nothing of JAX nor of ``float_tpu``.  ``--parent DIR``
+also times the kernels of another checkout (an unpacked ``git archive``
+of the parent commit) in turns with these, through that checkout's own
+wrappers.  Phases:
 
 1. device: a CUDA card must be present;
 2. build the hand-written kernels;
-3. K1 (``warp_shared``) against its plain PyTorch version on the card, at
-   every level of a 512² decode and every frame batch the driven paths
-   give it (24, 12, 8, 4, 1), with flows inside and far beyond +-7 px and
-   grids that leave the image; timed beside its bound and F.grid_sample;
+3. K1 (``warp_shared``) against its plain PyTorch version on the card, bit
+   for bit, at every level of a 512² decode and every frame batch the
+   driven paths give it (24, 12, 8, 4, 1), on every grid kind of
+   ``make_grid``: flows inside and far beyond its staged window, grids
+   that leave the image, sparse far pixels in every tile, NaN and
+   infinite entries; timed at each level and batch beside its bound, and
+   at 24 frames beside F.grid_sample;
 4. the port on the card against the port on the CPU at a tiny config in
    float32 (TF32 off), stage by stage;
 5. BASELINE config 1 end to end: 617.5 M synthetic parameters, a 512²
    portrait and 10 s of 16 kHz audio -> 250 frames, emotion predicted by
    the SER, 3-way CFG, 10 Euler steps, bf16 decode in 24-frame chunks;
    three timed clips (median), the launch counts of each checked;
-6. the first decode chunk through the kernels and through the plain warps;
+6. the first decode chunk through the kernels and through the plain
+   warps, and the largest tap displacement of its flows at each level;
 7. K3 (``warp_per_frame``) at every level of a 512² decode, K2
-   (``warp_rgb``) at the 128²..512² levels and K4's shapes through K1,
-   each against its plain version, then each kernel's row of the kernel
-   table: ms, plain ms, library ms and bound at config-1 shapes;
+   (``warp_rgb``) at the 128²..512² levels and K4's shapes through K1
+   (the last two on every grid kind), each against its plain version,
+   then each kernel's row of the kernel table: ms, plain ms, library ms
+   and bound at config-1 shapes;
 8. config 1's other paths, each with its launch counts: a decode with the
    ToRGB in the last warp (K2), a one-frame-chunk decode (K3), decode to
    host, ``generate_stream`` on the u8 and 4:2:0 wires, and
@@ -34,8 +42,9 @@ once) and imports nothing of JAX nor of ``float_tpu``.  Phases:
 A failed check is printed and the run goes on, so one run reports every
 phase; the script then exits 1 before printing its result lines.
 Output: one line per measurement, then a JSON line with every kernel's
-numbers, the card's name and power limit as nvidia-smi reports them, and
-last the line ``{"ok": true, "device": {...}}``.
+numbers (K1's per level and batch under ``levels``), the card's name and
+power limit as nvidia-smi reports them, and last the line
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -63,6 +72,10 @@ LEVELS = ((8, 512), (16, 512), (32, 512), (64, 256), (128, 128), (256, 64),
 # 8-frame last chunks of 10 s and 6 s clips, the stream's 4-frame first
 # chunk; and one frame.
 K1_BATCHES = (24, 12, 8, 4, 1)
+# Sampling grids every shared-map kernel is held to its plain version on
+# (make_grid): the staged kernels' windows, their device-memory fallback
+# and coordinates that must never become an index.
+GRID_KINDS = ("smooth", "far", "out", "mixed", "nonfinite")
 KERNEL_SOURCES = ("warp_shared", "warp_rgb")
 CUDA = "float_torch/kernels/csrc/"
 ROWS = {   # kernel-table rows: the name the wrapper counts launches under
@@ -164,14 +177,17 @@ def bound(n_bytes: float, n_ops: float):
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def warp_bound(feat, grid, c_out: int, ops_per_px: int):
+def warp_bound(feat, grid, c_out: int, ops_per_px: int,
+               ops_per_map_px: int = 0):
     """Bound of one warp call: feat and grid read once, (B, H, W, c_out)
-    written once, ``ops_per_px`` f32 operations per output pixel."""
+    written once, ``ops_per_px`` f32 operations per output pixel and
+    ``ops_per_map_px`` per pixel of feat."""
     b, h, w = grid.shape[:3]
     esize = feat.element_size()
     n_bytes = (feat.numel() * esize + grid.numel() * 4
                + b * h * w * c_out * esize)
-    return bound(n_bytes, b * h * w * ops_per_px)
+    n_map_px = feat.numel() // feat.shape[-1]
+    return bound(n_bytes, b * h * w * ops_per_px + n_map_px * ops_per_map_px)
 
 
 class Row:
@@ -179,19 +195,80 @@ class Row:
 
     def __init__(self):
         self.ms = self.plain_ms = self.library_ms = 0.0
+        self.parent_ms = None
         self.bound = {"bytes": 0.0, "operations": 0.0}
 
-    def add(self, ms, plain_ms, library_ms, bnd):
+    def add(self, ms, plain_ms, library_ms, bnd, parent_ms=None):
         self.ms += ms
         self.plain_ms += plain_ms
         self.library_ms += library_ms
         self.bound[bnd[1]] += bnd[0]
+        if parent_ms is not None:
+            self.parent_ms = (self.parent_ms or 0.0) + parent_ms
 
     def json(self) -> dict:
         by = max(self.bound, key=self.bound.get)
-        return {"ms": self.ms, "plain_ms": self.plain_ms,
-                "bound_ms": sum(self.bound.values()), "bound_by": by,
-                "library_ms": self.library_ms}
+        out = {"ms": self.ms, "plain_ms": self.plain_ms,
+               "bound_ms": sum(self.bound.values()), "bound_by": by,
+               "library_ms": self.library_ms}
+        if self.parent_ms is not None:
+            out["parent_ms"] = self.parent_ms
+        return out
+
+
+def timed(new, old=None, iters: int = 50):
+    """(graph_ms of ``new``, of ``old`` or None): both zero-argument
+    callables, ``old`` the parent commit's kernel, timed in turns
+    (old, new, new, old) on the same inputs."""
+    if old is None:
+        return graph_ms(new, iters=iters), None
+    t = [graph_ms(fn, iters=iters) for fn in (old, new, new, old)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+
+
+def vs_parent(ms, parent_ms) -> str:
+    if parent_ms is None:
+        return ""
+    return f", parent {parent_ms:.4f} ms ({parent_ms / ms:.2f}x)"
+
+
+class ParentKernels:
+    """K1, K2 and K3 of another checkout (``root``, e.g. the parent commit
+    unpacked by ``git archive``), called through that checkout's own
+    wrappers: its ``float_torch`` is imported under another name, so its
+    kernels are built from its own sources into its own ``build/`` and
+    launched with its own C signatures, whatever they are."""
+
+    NAME = "parent_float_torch"
+
+    def __init__(self, root: str):
+        import importlib
+        import importlib.util
+        from pathlib import Path
+        pkg = Path(root).resolve() / "float_torch"
+        spec = importlib.util.spec_from_file_location(
+            self.NAME, pkg / "__init__.py",
+            submodule_search_locations=[str(pkg)])
+        sys.modules[self.NAME] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(sys.modules[self.NAME])
+        kernels = f"{self.NAME}.kernels"
+        self.shared, self.rgb, build = (
+            importlib.import_module(f"{kernels}.{m}")
+            for m in ("warp_shared", "warp_rgb", "build"))
+        for mod in (self.shared, self.rgb, build):
+            if not Path(mod.__file__).is_relative_to(pkg):
+                raise RuntimeError(f"{mod.__name__} loaded from {mod.__file__}")
+        with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
+            list(ex.map(build.build, KERNEL_SOURCES))
+
+    def k1(self, feat, grid):
+        return lambda: self.shared.warp_shared_cuda(feat, grid)
+
+    def k3(self, feat, grid):
+        return lambda: self.shared.warp_per_frame_cuda(feat, grid)
+
+    def k2(self, feat, grid, wk):
+        return lambda: self.rgb.warp_rgb_cuda(feat, grid, wk)
 
 
 def grid_sample_call(feat, grid):
@@ -208,7 +285,27 @@ def grid_sample_call(feat, grid):
 def make_grid(kind: str, b: int, size: int, gen: torch.Generator):
     """Sampling grid (b, size, size, 2): pixel-centre identity plus a smooth
     random flow of a few px ("smooth"), of +-20 px ("far"), or a zoom-out
-    whose taps leave the image ("out")."""
+    whose taps leave the image ("out"); or the smooth grid with one pixel
+    of every 8 x 8 cell sent anywhere in [-1.5, 1.5]^2, far outside any
+    staged window ("mixed"), or with 3 % of its entries NaN, +inf or -inf
+    ("nonfinite")."""
+    if kind in ("mixed", "nonfinite"):
+        grid = make_grid("smooth", b, size, gen)
+        if kind == "mixed":
+            n = size // 8
+            cells = torch.arange(n, device="cuda") * 8
+            ys = cells[None, :, None] + torch.randint(
+                0, 8, (b, n, n), generator=gen, device="cuda")
+            xs = cells[None, None, :] + torch.randint(
+                0, 8, (b, n, n), generator=gen, device="cuda")
+            bs = torch.arange(b, device="cuda")[:, None, None].expand_as(ys)
+            grid[bs, ys, xs] = torch.rand((b, n, n, 2), generator=gen,
+                                          device="cuda") * 3.0 - 1.5
+        else:
+            r = torch.rand(grid.shape, generator=gen, device="cuda")
+            for i, bad in enumerate((math.nan, math.inf, -math.inf)):
+                grid[(r >= 0.01 * i) & (r < 0.01 * (i + 1))] = bad
+        return grid
     amp_px, zoom = {"smooth": (3.0, 1.0), "far": (20.0, 1.0),
                     "out": (5.0, 1.3)}[kind]
     coarse = max(2, size // 32)
@@ -223,6 +320,19 @@ def make_grid(kind: str, b: int, size: int, gen: torch.Generator):
     return (ident + flow.permute(0, 2, 3, 1) * (2.0 / size)).contiguous()
 
 
+def max_displacement(grid) -> float:
+    """Largest distance, in px on either axis, from an output pixel to the
+    source coordinate its grid entry samples (finite entries only): what a
+    staged window has to cover."""
+    b, h, w = grid.shape[:3]
+    fx = ((grid[..., 0].float() + 1.0) * w - 1.0) * 0.5
+    fy = ((grid[..., 1].float() + 1.0) * h - 1.0) * 0.5
+    dx = fx - torch.arange(w, device=grid.device)[None, None, :]
+    dy = fy - torch.arange(h, device=grid.device)[None, :, None]
+    d = torch.maximum(dx.abs(), dy.abs())
+    return d[torch.isfinite(d)].max().item()
+
+
 def rand_feat(gen, b, size, c, dtype):
     return torch.randn((b, size, size, c), generator=gen,
                        device="cuda").to(dtype)
@@ -235,49 +345,69 @@ def compare(name, out, ref, tol) -> float:
     return err
 
 
-def phase_kernels(gen: torch.Generator) -> dict:
+def phase_kernels(gen: torch.Generator, parent=None) -> dict:
+    """K1 against its plain version at every level, batch and grid kind
+    (bit for bit), then its row: a 24-frame chunk's 7 levels, and each
+    level at every batch of K1_BATCHES but 1 beside its bound (and the
+    parent commit's build, ``parent``, timed in turns with it)."""
     from float_torch.ops.warp import warp_shared, warp_shared_ref
 
     max_err = 0.0
     for size, c in LEVELS:
-        for dtype, batches, kinds in (
-                (torch.bfloat16, K1_BATCHES, ("smooth", "far", "out")),
-                (torch.float32, (12,), ("far",))):
+        for dtype, batches in ((torch.bfloat16, K1_BATCHES),
+                               (torch.float32, (12,))):
             feat = rand_feat(gen, 1, size, c, dtype)
-            scale = feat.float().abs().max().item()
-            tol = (BF16_TOL if dtype == torch.bfloat16 else F32_TOL) * scale
             for b in batches:
-                for kind in kinds:
+                for kind in GRID_KINDS:
                     grid = make_grid(kind, b, size, gen)
                     err = compare(
                         f"warp_shared {size}²xC{c} B={b} {dtype} {kind}",
                         warp_shared(feat, grid), warp_shared_ref(feat, grid),
-                        tol)
+                        0.0)
                     max_err = max(max_err, err)
-            log(f"[kernel] warp_shared {size}^2 C={c} {dtype}: agrees with "
-                f"the plain version (tol {tol:.3g})")
-    row = Row()
+            log(f"[kernel] warp_shared {size}^2 C={c} {dtype}: equal to the "
+                f"plain version on {', '.join(GRID_KINDS)} grids")
+    row, levels = Row(), []
     for size, c in LEVELS:
         feat = rand_feat(gen, 1, size, c, torch.bfloat16)
-        grid = make_grid("smooth", 24, size, gen)
-        k = graph_ms(warp_shared, feat, grid, iters=50)
-        host = event_ms(warp_shared, feat, grid, iters=50)
-        p = event_ms(warp_shared_ref, feat, grid, iters=5)
-        lib = graph_ms(grid_sample_call(feat, grid), iters=50)
-        bnd = warp_bound(feat, grid, c, 8 * c)
-        row.add(k, p, lib, bnd)
-        log(f"[kernel] warp_shared {size}^2 C={c} B=24 bf16: kernel {k:.4f} ms"
-            f" ({host:.4f} ms a call from Python), plain {p:.4f} ms, "
-            f"F.grid_sample {lib:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
-    log(f"[kernel] one 24-frame chunk's 7 warps: kernel {row.ms:.4f} ms, plain "
-        f"{row.plain_ms:.4f} ms, F.grid_sample {row.library_ms:.4f} ms, "
-        f"bound {sum(row.bound.values()):.4f} ms")
-    return dict(row.json(), max_abs_err=max_err)
+        for b in K1_BATCHES[:-1]:
+            grid = make_grid("smooth", b, size, gen)
+            bnd = warp_bound(feat, grid, c, 8 * c)
+            level = {"size": size, "c": c, "b": b, "bound_ms": bnd[0],
+                     "bound_by": bnd[1]}
+            # a few-microsecond call needs more launches to time steadily
+            iters = 200 if b * size * size * c * 2 < 64 << 20 else 50
+            ms, pms = timed(lambda: warp_shared(feat, grid),
+                            parent and parent.k1(feat, grid), iters)
+            level["ms"] = ms
+            if pms is not None:
+                level["parent_ms"] = pms
+            levels.append(level)
+            log(f"[kernel] warp_shared {size}^2 C={c} B={b} bf16: kernel "
+                f"{ms:.4f} ms{vs_parent(ms, pms)}, bound {bnd[0]:.4f} ms "
+                f"({bnd[1]}), {bnd[0] / ms:.1%} of bound")
+            if b != 24:
+                continue
+            host = event_ms(warp_shared, feat, grid, iters=50)
+            p = event_ms(warp_shared_ref, feat, grid, iters=5)
+            lib = graph_ms(grid_sample_call(feat, grid), iters=50)
+            row.add(ms, p, lib, bnd, pms)
+            level.update(plain_ms=p, library_ms=lib)
+            log(f"[kernel] warp_shared {size}^2 C={c} B=24 bf16: "
+                f"{host:.4f} ms a call from Python, plain {p:.4f} ms, "
+                f"F.grid_sample {lib:.4f} ms")
+    bnd = sum(row.bound.values())
+    log(f"[kernel] one 24-frame chunk's 7 warps: kernel {row.ms:.4f} ms"
+        f"{vs_parent(row.ms, row.parent_ms)}, plain {row.plain_ms:.4f} ms, "
+        f"F.grid_sample {row.library_ms:.4f} ms, bound {bnd:.4f} ms, "
+        f"{bnd / row.ms:.1%} of bound")
+    return dict(row.json(), max_abs_err=max_err, levels=levels)
 
 
-def phase_kernel_variants(gen: torch.Generator) -> dict:
+def phase_kernel_variants(gen: torch.Generator, parent=None) -> dict:
     """K3, K2 and K4's shapes against their plain versions, then their
-    rows of the kernel table at config-1 shapes."""
+    rows of the kernel table at config-1 shapes (each in turns with the
+    parent commit's build, ``parent``, when given)."""
     from float_torch.ops.warp import (warp_per_frame, warp_per_frame_ref,
                                       warp_rgb, warp_rgb_ref, warp_shared,
                                       warp_shared_ref)
@@ -308,7 +438,7 @@ def phase_kernel_variants(gen: torch.Generator) -> dict:
             tol = (BF16_TOL if dtype == torch.bfloat16 else RGB_F32_TOL) \
                 * feat.float().abs().max().item() * wnorm
             for b in batches:
-                for kind in ("smooth", "far", "out"):
+                for kind in GRID_KINDS:
                     grid = make_grid(kind, b, size, gen)
                     errs["K2"] = max(errs["K2"], compare(
                         f"warp_rgb {size}²xC{c} B={b} {dtype} {kind}",
@@ -317,27 +447,28 @@ def phase_kernel_variants(gen: torch.Generator) -> dict:
         log(f"[kernel] warp_rgb {size}^2 C={c}: agrees with the plain version")
 
     feat = rand_feat(gen, 1, 512, 32, torch.bfloat16)
-    tol = BF16_TOL * feat.float().abs().max().item()
-    for kind in ("smooth", "far", "out"):
+    for kind in GRID_KINDS:
         grid = make_grid(kind, 8, 512, gen)
         errs["K4"] = max(errs["K4"], compare(
             f"warp_shared (K4 shapes) 512²xC32 B=8 {kind}",
-            warp_shared(feat, grid), warp_shared_ref(feat, grid), tol))
-    log("[kernel] warp_shared at K4's shapes (512^2 C=32 B=8): agrees")
+            warp_shared(feat, grid), warp_shared_ref(feat, grid), 0.0))
+    log("[kernel] warp_shared at K4's shapes (512^2 C=32 B=8): equal")
 
     rows = {k: Row() for k in ("K2", "K3", "K4")}
     # K3: one frame's 7 warps (a one-frame decode chunk)
     for size, c in LEVELS:
         feat = rand_feat(gen, 1, size, c, torch.bfloat16)
         grid = make_grid("smooth", 1, size, gen)
-        k = graph_ms(warp_per_frame, feat, grid, iters=200)
+        k, pk = timed(lambda: warp_per_frame(feat, grid),
+                      parent and parent.k3(feat, grid), iters=200)
         host = event_ms(warp_per_frame, feat, grid, iters=200)
         p = event_ms(warp_per_frame_ref, feat, grid, iters=10)
         lib = graph_ms(grid_sample_call(feat, grid), iters=200)
         bnd = warp_bound(feat, grid, c, 8 * c)
-        rows["K3"].add(k, p, lib, bnd)
+        rows["K3"].add(k, p, lib, bnd, pk)
         log(f"[kernel] warp_per_frame {size}^2 C={c} B=1 bf16: kernel "
-            f"{k:.4f} ms ({host:.4f} ms a call from Python), plain {p:.4f} "
+            f"{k:.4f} ms{vs_parent(k, pk)} ({host:.4f} ms a call from "
+            f"Python), plain {p:.4f} "
             f"ms, F.grid_sample {lib:.4f} ms, bound {bnd[0]:.5f} ms "
             f"({bnd[1]})")
     # K2: the last level of a 24-frame chunk
@@ -346,28 +477,36 @@ def phase_kernel_variants(gen: torch.Generator) -> dict:
     wk = torch.randn((3, 32), generator=gen, device="cuda") / math.sqrt(32)
     w4 = wk.to(torch.bfloat16)[:, :, None, None]
     gs = grid_sample_call(feat, grid)
-    k = graph_ms(warp_rgb, feat, grid, wk, iters=50)
+    k, pk = timed(lambda: warp_rgb(feat, grid, wk),
+                  parent and parent.k2(feat, grid, wk))
     p = event_ms(warp_rgb_ref, feat, grid, wk, iters=5)
     lib = graph_ms(lambda: F.conv2d(gs(), w4), iters=50)
     k1 = graph_ms(warp_shared, feat, grid, iters=50)
-    bnd = warp_bound(feat, grid, 3, 8 * 32 + 6 * 32)
-    rows["K2"].add(k, p, lib, bnd)
-    log(f"[kernel] warp_rgb 512^2 C=32 B=24 bf16: kernel {k:.4f} ms, plain "
+    # the least work of the function: warp and 1x1 conv commute, so the
+    # map is contracted to 3 channels once (3 C multiply-adds a map pixel)
+    # and 3 channels are warped (4 taps x 3 multiply-adds an output pixel)
+    bnd = warp_bound(feat, grid, 3, 2 * 4 * 3, ops_per_map_px=2 * 3 * 32)
+    rows["K2"].add(k, p, lib, bnd, pk)
+    log(f"[kernel] warp_rgb 512^2 C=32 B=24 bf16: kernel {k:.4f} ms"
+        f"{vs_parent(k, pk)}, {bnd[0] / k:.1%} of bound; plain "
         f"{p:.4f} ms, F.grid_sample + F.conv2d {lib:.4f} ms, bound "
         f"{bnd[0]:.4f} ms ({bnd[1]}); warp_shared alone {k1:.4f} ms")
     # K4: its own shapes, 8 frames at 512² C=32
     grid = make_grid("smooth", 8, 512, gen)
-    k = graph_ms(warp_shared, feat, grid, iters=50)
+    k, pk = timed(lambda: warp_shared(feat, grid),
+                  parent and parent.k1(feat, grid))
     p = event_ms(warp_shared_ref, feat, grid, iters=5)
     lib = graph_ms(grid_sample_call(feat, grid), iters=50)
     bnd = warp_bound(feat, grid, 32, 8 * 32)
-    rows["K4"].add(k, p, lib, bnd)
+    rows["K4"].add(k, p, lib, bnd, pk)
     log(f"[kernel] warp_shared (K4 shapes) 512^2 C=32 B=8 bf16: kernel "
-        f"{k:.4f} ms, plain {p:.4f} ms, F.grid_sample {lib:.4f} ms, bound "
-        f"{bnd[0]:.4f} ms ({bnd[1]})")
+        f"{k:.4f} ms{vs_parent(k, pk)}, plain {p:.4f} ms, F.grid_sample "
+        f"{lib:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+        f"{bnd[0] / k:.1%} of bound")
+    k3 = rows["K3"]
     log(f"[kernel] warp_per_frame, one frame's 7 warps: kernel "
-        f"{rows['K3'].ms:.4f} ms, F.grid_sample {rows['K3'].library_ms:.4f}"
-        f" ms, bound {sum(rows['K3'].bound.values()):.5f} ms")
+        f"{k3.ms:.4f} ms{vs_parent(k3.ms, k3.parent_ms)}, F.grid_sample "
+        f"{k3.library_ms:.4f} ms, bound {sum(k3.bound.values()):.5f} ms")
     return {k: dict(rows[k].json(), max_abs_err=errs[k]) for k in rows}
 
 
@@ -509,9 +648,19 @@ def phase_config1() -> dict:
     from float_torch.runtime.decode import decode_chunk
     wa_c = (s_r.float() + r_d[0, :cfg.decode_batch]).to(pipe.compute_dtype)
     feats_c = [f.to(pipe.compute_dtype) for f in feats]
+    disp = {}
+
+    def shared_recorded(feat, grid):
+        disp[grid.shape[1]] = max_displacement(grid)
+        return DISPATCH.shared(feat, grid)
+
     with torch.inference_mode():
-        a = decode_chunk(pipe.syn_cast, wa_c, feats_c, 512, warps=DISPATCH)
+        a = decode_chunk(pipe.syn_cast, wa_c, feats_c, 512,
+                         warps=DISPATCH._replace(shared=shared_recorded))
         b = decode_chunk(pipe.syn_cast, wa_c, feats_c, 512, warps=PLAIN)
+    log("[decode] first chunk's flows, max displacement of a tap from its "
+        "output pixel (px): " + ", ".join(f"{s}^2 {d:.2f}"
+                                          for s, d in sorted(disp.items())))
     diff = (a - b).abs()
     log(f"[decode] first chunk, kernel vs plain warp: max|diff| "
         f"{diff.max().item():.3e}, mean|diff| {diff.mean().item():.3e}")
@@ -661,6 +810,12 @@ def phase_paths(c1: dict) -> dict:
 
 
 def main() -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", metavar="DIR",
+                    help="a checkout of another commit (git archive): build "
+                         "its kernels and time them in turns with these")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -675,10 +830,17 @@ def main() -> int:
     log(f"[build] {', '.join(p.name for p in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
+    parent = None
+    if args.parent:
+        t0 = time.perf_counter()
+        parent = ParentKernels(args.parent)
+        log(f"[build] the kernels of {args.parent} in "
+            f"{time.perf_counter() - t0:.2f} s, timed in turns with these")
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    rows = {"K1": phase_kernels(gen)}
-    rows.update(phase_kernel_variants(gen))
+    rows = {"K1": phase_kernels(gen, parent)}
+    rows.update(phase_kernel_variants(gen, parent))
     phase_tiny()
     c1 = phase_config1()
     counts = phase_paths(c1)

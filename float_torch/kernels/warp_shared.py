@@ -1,15 +1,18 @@
 """ctypes wrappers of the bilinear warp kernels of ``csrc/warp_shared.cu``:
-K1 (one map shared by the frames, ``warp_shared_cuda``) and K3 (one map
-per frame, ``warp_per_frame_cuda``).  Their plain PyTorch versions are
+K1 (one map shared by the frames, ``warp_shared_cuda``, staged by the plan
+of ``warp_plan.plan_shared``) and K3 (one map per frame,
+``warp_per_frame_cuda``).  Their plain PyTorch versions are
 ``float_torch.ops.warp.warp_shared_ref`` and ``warp_per_frame_ref``."""
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from . import LAUNCH_SHAPES, LAUNCHES
 from .build import load
+from .warp_plan import Plan, plan_shared
 
 LIB = "warp_shared"
 DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
@@ -20,11 +23,14 @@ def _lib() -> ctypes.CDLL:
     # every pointer and the stream as c_void_p: undeclared, ctypes would
     # pass a Python int as a 32-bit int and cut the pointer
     lib = load(LIB)
+    ptrs = [ctypes.c_void_p] * 3
+    shape = [ctypes.c_int] * 4                      # B, H, W, C
+    tail = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # dtype, device, stream
+    lib.warp_shared_launch.argtypes = (ptrs + shape
+                                       + [ctypes.c_int] * len(Plan._fields)
+                                       + tail)
+    lib.warp_per_frame_launch.argtypes = ptrs + shape + tail
     for fn in (lib.warp_shared_launch, lib.warp_per_frame_launch):
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     lib.warp_shared_error_string.argtypes = [ctypes.c_int]
     lib.warp_shared_error_string.restype = ctypes.c_char_p
@@ -62,8 +68,8 @@ def check_warp_inputs(name: str, feat: torch.Tensor, grid: torch.Tensor,
 
 
 def _launch(name: str, feat: torch.Tensor, grid: torch.Tensor,
-            feat_batch: int) -> torch.Tensor:
-    check_warp_inputs(name, feat, grid, feat_batch)
+            plan: Plan | None) -> torch.Tensor:
+    """Launch K1 (with its plan) or K3 (plan None) on checked inputs."""
     b = grid.shape[0]
     _, h, w, c = feat.shape
     out = torch.empty((b, h, w, c), dtype=feat.dtype, device=feat.device)
@@ -71,9 +77,12 @@ def _launch(name: str, feat: torch.Tensor, grid: torch.Tensor,
         return out
     lib = _lib()
     stream = torch.cuda.current_stream(feat.device).cuda_stream
-    err = getattr(lib, f"{name}_launch")(
-        feat.data_ptr(), grid.data_ptr(), out.data_ptr(), b, h, w, c,
-        DTYPE_CODE[feat.dtype], feat.device.index, stream)
+    args = (feat.data_ptr(), grid.data_ptr(), out.data_ptr(), b, h, w, c)
+    tail = (DTYPE_CODE[feat.dtype], feat.device.index, stream)
+    if plan is None:
+        err = lib.warp_per_frame_launch(*args, *tail)
+    else:
+        err = lib.warp_shared_launch(*args, *plan, *tail)
     if err:
         msg = lib.warp_shared_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")
@@ -84,12 +93,19 @@ def _launch(name: str, feat: torch.Tensor, grid: torch.Tensor,
 
 def warp_shared_cuda(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """K1: feat (1, H, W, C) shared by the frames, grid (B, H, W, 2)
-    -> (B, H, W, C) in feat's dtype.  Raises on anything else."""
-    return _launch("warp_shared", feat, grid, 1)
+    -> (B, H, W, C) in feat's dtype, launched with ``plan_shared``'s plan
+    for the shape.  Raises on anything else."""
+    check_warp_inputs("warp_shared", feat, grid, 1)
+    shape = (grid.shape[0], *feat.shape[1:])
+    if math.prod(shape) == 0:
+        return feat.new_empty(shape)
+    return _launch("warp_shared", feat, grid,
+                   plan_shared(*shape, feat.element_size()))
 
 
 def warp_per_frame_cuda(feat: torch.Tensor,
                         grid: torch.Tensor) -> torch.Tensor:
     """K3: feat (B, H, W, C), frame b warped by grid[b] (B, H, W, 2)
     -> (B, H, W, C) in feat's dtype.  Raises on anything else."""
-    return _launch("warp_per_frame", feat, grid, grid.shape[0])
+    check_warp_inputs("warp_per_frame", feat, grid, grid.shape[0])
+    return _launch("warp_per_frame", feat, grid, None)
