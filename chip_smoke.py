@@ -16,10 +16,11 @@ wrappers.  Phases:
 2. build the hand-written kernels;
 3. K1 (``warp_shared``) against its plain PyTorch version on the card, bit
    for bit, at every level of a 512² decode and every frame batch the
-   driven paths give it (24, 12, 8, 4, 1), on every grid kind of
-   ``make_grid``: flows inside and far beyond its staged window, grids
-   that leave the image, sparse far pixels in every tile, NaN and
-   infinite entries; timed at each level and batch beside its bound, and
+   driven paths give it (bf16: 24, 12, 8, 4, 1; float32, the Very
+   Advanced tier's decode and its reference: 24, 12, 8, 4), on every
+   grid kind of ``make_grid``: flows inside and far beyond its staged
+   window, grids that leave the image, sparse far pixels in every tile,
+   NaN and infinite entries; timed at each level and batch beside its bound, and
    at 24 frames beside F.grid_sample;
 4. the port on the card against the port on the CPU at a tiny config in
    float32 (TF32 off), stage by stage;
@@ -37,7 +38,26 @@ wrappers.  Phases:
 8. config 1's other paths, each with its launch counts: a decode with the
    ToRGB in the last warp (K2), a one-frame-chunk decode (K3), decode to
    host, ``generate_stream`` on the u8 and 4:2:0 wires, and
-   ``generate_batch`` of two portraits with 10 s and 6 s of audio.
+   ``generate_batch`` of two portraits with 10 s and 6 s of audio;
+9. the checkpoint at full width: config 1's parameters written as a
+   unified FLOAT.safetensors by the port's own writer into a temporary
+   directory outside the repository, loaded by ``load_float_models`` onto
+   the card, every tensor equal;
+10. the Regular tier: ``example_workflows/graph_regular.json`` through the
+   graph executor (LoadFloatModelsOpt reads that file; a 512² portrait
+   and 10 s of audio as .npy inputs; VHS_VideoCombine writes its mp4 when
+   the machine has cv2 or ffmpeg, else it is muted), its 250 frames
+   against the loaded pipeline's ``generate(seed=15)``, K1's launches;
+11. the Advanced tier: the split nodes on the loaded pipe, its frames
+   against the graph's;
+12. the Very Advanced tier: the part files and the two HF folders cut from
+   the unified file, the six loaders (widths inferred from the
+   checkpoints, checked against the published ones) and the eight apply
+   nodes with their adapters' arguments (ApplyFloatSynthesis: float32,
+   8-frame chunks); its latents against the Advanced tier's, its frames
+   against a float32 decode of those latents by the graph's pipeline and
+   against the graph's bf16 frames.  The temporary directory is then
+   gone, and no checkpoint file is left in the repository.
 
 A failed check is printed and the run goes on, so one run reports every
 phase; the script then exits 1 before printing its result lines.
@@ -48,12 +68,16 @@ power limit as nvidia-smi reports them, and last the line
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -111,11 +135,30 @@ TINY_TOL = 1e-3
 # other chunk sizes (cuDNN may pick other algorithms) or with the ToRGB in
 # the warp against the default decode.
 DECODE_TOL = 2e-2
+# float32 decodes of the same latents in other chunk sizes: cuDNN may pick
+# other algorithms (TF32 off), about 1e-6 of [0, 1]; a value that close to
+# a rounding edge takes the other uint8 level (U8_STEP, added at the check).
+F32_DECODE_TOL = 1e-4
+# The Very Advanced tier decodes in float32, the graph in bf16: the bf16
+# rounding of weights and activations carried through seven levels.
+BF16_DECODE_TOL = 5e-2
+# Motion latents of two tiers from one seed and the same noise: the same
+# f32 sampler on inputs made by other node compositions.
+LATENT_TOL = 1e-4
 U8_STEP = 1.0 / 255.0
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores (the warps' multiply-adds run there).
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
+
+# The model store's layout under a models root (float_torch/io/download.py)
+PART_FILES = {"encoder": "float/motion_autoencoder/encoder.safetensors",
+              "decoder": "float/motion_autoencoder/decoder.safetensors",
+              "projection": "float/audio_projections/projection.safetensors",
+              "fmt": "float/fmt/fmt.safetensors"}
+W2V_DIR = "audio/wav2vec2-base-960h"
+SER_DIR = "audio/wav2vec-english-speech-emotion-recognition"
+REPO = Path(__file__).resolve().parent
 
 FAILURES: list = []
 
@@ -355,7 +398,7 @@ def phase_kernels(gen: torch.Generator, parent=None) -> dict:
     max_err = 0.0
     for size, c in LEVELS:
         for dtype, batches in ((torch.bfloat16, K1_BATCHES),
-                               (torch.float32, (12,))):
+                               (torch.float32, (24, 12, 8, 4))):
             feat = rand_feat(gen, 1, size, c, dtype)
             for b in batches:
                 for kind in GRID_KINDS:
@@ -693,16 +736,17 @@ def run_path(name: str, fn, want: dict, want_k4: int):
     return out, secs, got
 
 
-def check_frames(name: str, got, ref, tol: float) -> None:
+def check_frames(name: str, got, ref, tol: float,
+                 ref_name: str = "generate") -> None:
     got = torch.as_tensor(got).float().to(ref.device)
     lo, hi = got.min().item(), got.max().item()
     check(bool(torch.isfinite(got).all()) and 0.0 <= lo and hi <= 1.0,
           f"{name}: frames not finite or outside [0, 1]: {lo}..{hi}")
     err = (got - ref).abs().max().item() if got.shape == ref.shape \
         else float("inf")
-    log(f"[path] {name}: {tuple(got.shape)} frames vs generate's max|diff| "
+    log(f"[path] {name}: {tuple(got.shape)} frames vs {ref_name}'s max|diff| "
         f"{err:.3e} (tol {tol:.3g})")
-    check(err <= tol, f"{name}: vs generate max|diff| {err} > {tol}")
+    check(err <= tol, f"{name}: vs {ref_name} max|diff| {err} > {tol}")
 
 
 def phase_paths(c1: dict) -> dict:
@@ -809,6 +853,268 @@ def phase_paths(c1: dict) -> dict:
     return counts
 
 
+class NodeTimes:
+    """Wall seconds of each node a graph runs, each closed by a
+    synchronize: the registry's adapters wrapped while in use."""
+
+    def __enter__(self):
+        from float_torch.api import comfy
+        self.registry, self.saved, self.secs = comfy.ADAPTERS, dict(
+            comfy.ADAPTERS), {}
+        for name, fn in self.saved.items():
+            self.registry[name] = self._timed(name, fn)
+        return self.secs
+
+    def _timed(self, name, fn):
+        def run(ctx, inputs):
+            t0 = sync_time()
+            out = fn(ctx, inputs)
+            self.secs[name] = sync_time() - t0
+            return out
+        return run
+
+    def __exit__(self, *exc):
+        self.registry.update(self.saved)
+
+
+def phase_checkpoint(c1: dict, root: Path) -> str:
+    """Config 1's parameters -> unified FLOAT.safetensors (the port's
+    writer) -> ``load_float_models`` on the card; every tensor equal."""
+    from float_torch.api.nodes import load_float_models
+    from float_torch.io.checkpoint import save_safetensors, unified_state_dict
+    pipe = c1["pipe"]
+    path = root / "float" / "FLOAT.safetensors"
+    path.parent.mkdir(parents=True)
+    want = pipe.params.state_dict()
+    t0 = time.perf_counter()
+    save_safetensors(unified_state_dict(want), str(path))
+    n = sum(v.numel() for v in want.values())
+    log(f"[checkpoint] {n / 1e6:.1f} M parameters written as a unified "
+        f"FLOAT.safetensors ({path.stat().st_size / 1e9:.3f} GB) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = sync_time()
+    loaded = load_float_models(model=str(path), target_device="cuda",
+                               cfg=pipe.cfg)
+    secs = sync_time() - t0
+    got = loaded.pipeline.params.state_dict()
+    equal = sorted(got) == sorted(want) and all(
+        torch.equal(got[k], want[k]) for k in want)
+    check(equal, "the loaded checkpoint's tensors differ from the "
+          "pipeline's that were written")
+    check(loaded.pipeline.device.type == "cuda" and loaded.weights == "real",
+          f"loaded onto {loaded.pipeline.device} as {loaded.weights!r}")
+    log(f"[checkpoint] load_float_models, file to pipeline on "
+        f"{loaded.pipeline.device}: {secs:.2f} s; all {len(want)} tensors "
+        f"equal to the written ones: {equal}")
+    return str(path)
+
+
+def phase_regular_graph(c1: dict, root: Path, n_chunks: int) -> dict:
+    """graph_regular.json through the port's graph executor on the card."""
+    from float_torch.api.comfy import GraphContext, run_comfy_workflow
+    from float_torch.audio.features import normalize_waveform
+    from float_torch.image.transform import comfy_image_to_model_input
+    from float_torch.io.video import video_backend
+    size = c1["pipe"].cfg.input_size
+    rng = np.random.default_rng(2)
+    # k / 255 in float32 maps back to k through the graph's uint8 step, so
+    # the split tiers, which take the float image, see the same pixels
+    img = rng.integers(0, 256, (size, size, 3)).astype(np.float32) / 255
+    wave = c1["wave"][0].cpu().numpy()
+    np.save(root / "portrait.npy", img)
+    np.save(root / "speech.npy", wave)
+    with open(REPO / "example_workflows" / "graph_regular.json") as f:
+        wf = json.load(f)
+    writer = video_backend()
+    if writer:
+        log(f"[graph] VHS_VideoCombine writes its mp4 through {writer}")
+    else:
+        for node in wf["nodes"]:
+            if node["type"] == "VHS_VideoCombine":
+                node["mode"] = 2
+        log("[graph] neither cv2 nor an ffmpeg binary here: VHS_VideoCombine "
+            "muted (mode 2)")
+    ctx = GraphContext(
+        device="cuda", models_root=str(root), inputs_dir=str(root),
+        output_dir=str(root / "out"),
+        overrides={"LoadImage": {"image": "portrait.npy"},
+                   "LoadAudio": {"audio": "speech.npy"},
+                   "LoadFloatModelsOpt": {"cfg": c1["pipe"].cfg}})
+    with NodeTimes() as node_secs:
+        (results, ctx), secs, counts = run_path(
+            "graph_regular.json", lambda: run_comfy_workflow(wf, ctx),
+            {"warp_shared": len(LEVELS) * n_chunks}, n_chunks)
+    log(f"[graph] graph_regular.json: {secs:.3f} s wall, from the checkpoint "
+        f"file (LoadFloatModelsOpt) to the frames on the host"
+        + (f" and {ctx.artifacts[0]}" if ctx.artifacts else "")
+        + "; by node: " + ", ".join(f"{k} {v:.3f} s"
+                                    for k, v in node_secs.items()))
+    float_pipe, frames = results["3"][0], results["4"][0]
+    t_frames = c1["frames"].shape[0]
+    check(frames.shape == (t_frames, size, size, 3),
+          f"FloatProcessOpt frames {frames.shape}")
+    if writer:
+        check(len(ctx.artifacts) == 1 and Path(ctx.artifacts[0]).stat()
+              .st_size > 0, f"VHS_VideoCombine wrote {ctx.artifacts}")
+    model_in, _ = comfy_image_to_model_input(img, size)
+    with torch.inference_mode():
+        ref = float_pipe.pipeline.generate(
+            model_in, normalize_waveform(wave)[None], emotion="none", seed=15)
+    check_frames("graph_regular.json", frames, ref, DECODE_TOL + U8_STEP,
+                 "generate(seed=15)")
+    return {"pipe": float_pipe, "img": img, "frames": torch.from_numpy(
+        frames).cuda(), "audio": {"waveform": wave[None, None],
+                                  "sample_rate": 16000}, "counts": counts}
+
+
+def phase_advanced(reg: dict, n_chunks: int) -> dict:
+    """The Advanced tier's split nodes on the graph's FLOAT_PIPE, face
+    alignment off."""
+    from float_torch.api import nodes as N
+    pipe = reg["pipe"]
+
+    def tier():
+        app, lam = N.float_encode_image_to_latents(pipe, reg["img"][None])
+        r_s = N.float_get_identity_reference(pipe, lam)
+        wa, t, processed = N.float_encode_audio_to_wa(pipe, reg["audio"])
+        we = N.float_encode_emotion_to_we(pipe, processed, "none")
+        r_d = N.float_sample_motion_sequence(pipe, r_s, wa, we,
+                                             audio_num_frames=t, seed=15)
+        return N.float_decode_latents_to_images(pipe, app, r_d)[0], r_d
+
+    (frames, r_d), secs, counts = run_path(
+        "advanced tier", tier, {"warp_shared": len(LEVELS) * n_chunks},
+        n_chunks)
+    log(f"[tier] advanced: {secs:.3f} s for {frames.shape[0]} frames")
+    check_frames("advanced tier", frames, reg["frames"], DECODE_TOL + U8_STEP,
+                 "graph_regular.json")
+    return counts, r_d
+
+
+def write_hf_folder(unified: str, part: str, d: Path, cfg, labels=()):
+    """An HF folder cut from the unified file: model.safetensors and a
+    config.json of ``cfg`` (with id2label for a classifier)."""
+    from float_torch.io.download import extract_part
+    check(extract_part(unified, part, str(d / "model.safetensors")),
+          f"no {part} in {unified}")
+    raw = dataclasses.asdict(cfg)
+    if labels:
+        raw["id2label"] = {str(i): lbl for i, lbl in enumerate(labels)}
+    (d / "config.json").write_text(json.dumps(raw))
+
+
+def phase_very_advanced(reg: dict, root: Path, unified: str) -> dict:
+    """Part files and HF folders cut from the unified file, the six loaders
+    (published widths inferred), the eight apply nodes with the arguments
+    their graph adapters pass: ApplyFloatSynthesis decodes in float32 in
+    chunks of its default decode_batch."""
+    import inspect
+    from float_torch.api import nodes as N
+    from float_torch.config import (EMOTION_LABELS, WAV2VEC2_BASE,
+                                    WAV2VEC2_LARGE_SER)
+    from float_torch.io.download import extract_part
+    from float_torch.runtime.decode import decode_clips_to_host
+    t0 = time.perf_counter()
+    for key, rel in PART_FILES.items():
+        check(extract_part(unified, key, str(root / rel)), f"no {key} part")
+    write_hf_folder(unified, "wav2vec2_base", root / W2V_DIR, WAV2VEC2_BASE)
+    write_hf_folder(unified, "emotion_ser", root / SER_DIR,
+                    WAV2VEC2_LARGE_SER, EMOTION_LABELS)
+    log(f"[tier] very advanced: 4 part files and 2 HF folders cut from the "
+        f"unified file in {time.perf_counter() - t0:.2f} s")
+    t0 = sync_time()
+    w2v = N.load_wav2vec_model(str(root / W2V_DIR))
+    proj = N.load_audio_projection(str(root / PART_FILES["projection"]))
+    emo = N.load_emotion_model(str(root / SER_DIR))
+    enc = N.load_float_encoder(str(root / PART_FILES["encoder"]))
+    syn = N.load_float_synthesis(str(root / PART_FILES["decoder"]))
+    fmt = N.load_fmt_model(str(root / PART_FILES["fmt"]))
+    secs = sync_time() - t0
+    widths = {
+        "wav2vec2": w2v.config == WAV2VEC2_BASE,
+        "ser": emo.config == WAV2VEC2_LARGE_SER and emo.dim_e == 7,
+        "projection": (proj.input_dim, proj.output_dim) == (9216, 512),
+        "encoder": (enc.input_size, enc.dim, enc.dim_motion) == (512, 512, 20),
+        "synthesis": (syn.size, syn.style_dim, syn.motion_dim) == (512, 512,
+                                                                   20),
+        "fmt": (fmt.cfg.dim_w, fmt.cfg.dim_h, fmt.cfg.dim_a,
+                fmt.cfg.fmt_depth, fmt.cfg.mlp_ratio) == (512, 1024, 512, 8,
+                                                          4.0)}
+    for name, ok in widths.items():
+        check(ok, f"very advanced tier: {name}'s widths inferred from its "
+              "checkpoint are not the published ones")
+    log(f"[tier] very advanced: six loaders onto the card in {secs:.2f} s; "
+        f"published widths inferred: {widths}")
+    audio = reg["audio"]
+    fb = inspect.signature(N.apply_float_synthesis).parameters[
+        "decode_batch"].default
+    va_chunks = math.ceil(reg["frames"].shape[0] / fb)
+
+    def tier():
+        feats, _processed, t = N.audio_preprocess_and_feature_extract(w2v,
+                                                                      audio)
+        wa = N.apply_audio_projection(proj, feats)
+        we = N.extract_emotion(emo, audio, "none")
+        we_dyn, seq = N.extract_emotion_dynamic(emo, audio, t)
+        app, lam = N.apply_float_encoder(enc, reg["img"])
+        r_s = N.get_identity_reference_va(syn, lam)
+        r_d = N.sample_motion_sequence_va(fmt, r_s, wa, we,
+                                          audio_num_frames=t, seed=15)
+        frames, _fps = N.apply_float_synthesis(syn, app, r_d)
+        return frames, we_dyn, seq, app, r_d
+
+    (frames, we_dyn, seq, app, r_d), secs, counts = run_path(
+        "very advanced tier", tier, {"warp_shared": len(LEVELS) * va_chunks},
+        va_chunks)
+    log(f"[tier] very advanced: {secs:.3f} s for the eight apply nodes, "
+        f"{frames.shape[0]} frames decoded in float32, {va_chunks} chunks of "
+        f"{fb}; dynamic emotion {tuple(we_dyn.shape)} from {seq.shape[1]} "
+        f"windows")
+    check(tuple(we_dyn.shape) == (1, frames.shape[0], 7)
+          and seq.shape == (1, 5, 7) and bool(torch.isfinite(we_dyn).all()),
+          f"extract_emotion_dynamic: we {tuple(we_dyn.shape)}, "
+          f"windows {seq.shape}")
+    err = (r_d - reg["r_d"]).abs().max().item()
+    log(f"[tier] very advanced: motion latents vs the advanced tier's "
+        f"(same seed and noise) max|diff| {err:.3e} (tol {LATENT_TOL:.3g})")
+    check(err <= LATENT_TOL, f"very advanced tier: latents differ from the "
+          f"advanced tier's by {err}")
+    # the same latents decoded in float32 by the graph's pipeline (its own
+    # copy of the weights, from the unified file) in the graph's chunks
+    pipe = reg["pipe"].pipeline
+    ref = decode_clips_to_host(
+        pipe.params["synthesis"], [(app.h_source, app.feats, r_d[0])],
+        size=pipe.cfg.input_size, decode_batch=pipe.cfg.decode_batch)[0]
+    check_frames("very advanced tier", frames, torch.from_numpy(ref).cuda(),
+                 F32_DECODE_TOL + U8_STEP, "a float32 decode of its latents")
+    check_frames("very advanced tier", frames, reg["frames"],
+                 BF16_DECODE_TOL + U8_STEP, "graph_regular.json (bf16)")
+    return counts
+
+
+def phase_nodes(c1: dict) -> dict:
+    """Phases 9-12 in one temporary directory outside the repository,
+    which is gone afterwards."""
+    n_chunks = math.ceil(c1["frames"].shape[0] / c1["pipe"].cfg.decode_batch)
+    counts = {}
+    with tempfile.TemporaryDirectory(prefix="float_chip_smoke_") as tmp:
+        root = Path(tmp).resolve()
+        check(not root.is_relative_to(REPO),
+              f"the temporary directory {root} lies inside the repository")
+        unified = phase_checkpoint(c1, root)
+        torch.cuda.empty_cache()
+        reg = phase_regular_graph(c1, root, n_chunks)
+        counts["graph_regular.json"] = reg["counts"]
+        counts["advanced"], reg["r_d"] = phase_advanced(reg, n_chunks)
+        counts["very_advanced"] = phase_very_advanced(reg, root, unified)
+    left = sorted(str(p) for p in REPO.rglob("*.safetensors"))
+    check(not Path(tmp).exists() and not left,
+          f"checkpoint files left behind: {tmp} exists "
+          f"{Path(tmp).exists()}, in the repository {left}")
+    log(f"[nodes] {tmp} removed; no checkpoint file in the repository")
+    return counts
+
+
 def main() -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -824,6 +1130,11 @@ def main() -> int:
 
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f", CUDA {torch.version.cuda}")
+    import importlib.util
+    log("[device] host packages the port does without: " + ", ".join(
+        f"{m} {'present' if importlib.util.find_spec(m) else 'absent'}"
+        for m in ("safetensors", "cv2", "PIL", "face_alignment"))
+        + f"; ffmpeg {'on' if shutil.which('ffmpeg') else 'not on'} PATH")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
         libs = list(ex.map(build.build, KERNEL_SOURCES))
@@ -844,6 +1155,7 @@ def main() -> int:
     phase_tiny()
     c1 = phase_config1()
     counts = phase_paths(c1)
+    counts.update(phase_nodes(c1))
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "float_tpu"))
     check(not leaked, f"imported {leaked}")

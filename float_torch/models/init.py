@@ -276,3 +276,14 @@ def params_to_state_dict(tree: dict, prefix: str = "") -> dict:
         else:
             out[name] = torch.from_numpy(np.array(v, dtype=np.float32))
     return out
+
+
+def tree_to_module(tree: dict, device=None) -> ParamTree:
+    """A :class:`ParamTree` on ``device`` holding float32 copies of a
+    nested dict's array leaves (a model whose shapes were read from its
+    checkpoint, so no skeleton to load into)."""
+    def copy(node):
+        if isinstance(node, dict):
+            return {k: copy(v) for k, v in node.items()}
+        return torch.from_numpy(np.array(node, dtype=np.float32)).to(device)
+    return ParamTree(copy(tree))

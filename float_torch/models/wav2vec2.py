@@ -105,9 +105,17 @@ class EncoderOutput(NamedTuple):
     hidden_states: tuple        # (num_layers + 1) entries, HF layout
 
 
-def encoder(params, x, cfg: Wav2Vec2Config,
-            collect_hidden: bool = False) -> EncoderOutput:
-    """Transformer encoder over projected features (B, T, H)."""
+def encoder(params, x, cfg: Wav2Vec2Config, collect_hidden: bool = False,
+            attention_mask=None) -> EncoderOutput:
+    """Transformer encoder over projected features (B, T, H).
+
+    ``attention_mask`` (B, T), 1 = real frame: masked frames are zeroed
+    before the positional conv and get an additive key bias of -1e9 in
+    every attention (HF Wav2Vec2Encoder)."""
+    bias = None
+    if attention_mask is not None:
+        x = x * attention_mask.to(x.dtype)[..., None]
+        bias = (1.0 - attention_mask.float())[:, None, None, :] * -1e9
     x = x + _pos_conv_embed(params["pos_conv_embed"], x, cfg)
     hidden = []
     if cfg.do_stable_layer_norm:
@@ -115,7 +123,7 @@ def encoder(params, x, cfg: Wav2Vec2Config,
             if collect_hidden:
                 hidden.append(x)
             x = _encoder_layer_pre_ln(params["layers"][str(i)], x,
-                                      cfg.num_attention_heads)
+                                      cfg.num_attention_heads, bias)
         x = _layer_norm(params["layer_norm"], x)
     else:
         x = _layer_norm(params["layer_norm"], x)
@@ -123,7 +131,7 @@ def encoder(params, x, cfg: Wav2Vec2Config,
             if collect_hidden:
                 hidden.append(x)
             x = _encoder_layer_post_ln(params["layers"][str(i)], x,
-                                       cfg.num_attention_heads)
+                                       cfg.num_attention_heads, bias)
     if collect_hidden:
         hidden.append(x)
     return EncoderOutput(x, tuple(hidden))
@@ -144,16 +152,36 @@ def wav2vec2_frame_features(params, wave, seq_len: int, cfg: Wav2Vec2Config,
                    collect_hidden=collect_hidden)
 
 
-def ser_logits(params, wave, cfg: Wav2Vec2Config):
+def feature_vector_attention_mask(attention_mask, t_conv: int,
+                                  cfg: Wav2Vec2Config):
+    """A (B, N) sample mask on the (B, T_conv) conv frame grid: frames up to
+    the conv output length of each item's sample count are real (HF
+    _get_feature_vector_attention_mask)."""
+    lengths = attention_mask.long().sum(dim=-1)
+    for k, s in zip(cfg.conv_kernel, cfg.conv_stride):
+        lengths = torch.div(lengths - k, s, rounding_mode="floor") + 1
+    frame = torch.arange(t_conv, device=attention_mask.device)[None, :]
+    return (frame < lengths[:, None]).int()
+
+
+def ser_logits(params, wave, cfg: Wav2Vec2Config, attention_mask=None):
     """Speech-emotion classifier: standard wav2vec2 forward (no frame
-    resampling), mean pool over time, dense/tanh/out_proj."""
+    resampling), mean pool over time, dense/tanh/out_proj.
+    ``attention_mask`` (B, N) samples, 1 = real, shapes the encoder pass
+    only: the pool stays unmasked, as in the reference
+    (wav2vec2_ser.py:57-86)."""
     feats = feature_extractor(params["feature_extractor"], wave, cfg)
-    h = encoder(params["encoder"], _project(params, feats),
-                cfg).last_hidden_state
+    frame_mask = None
+    if attention_mask is not None:
+        frame_mask = feature_vector_attention_mask(attention_mask,
+                                                   feats.shape[1], cfg)
+    h = encoder(params["encoder"], _project(params, feats), cfg,
+                attention_mask=frame_mask).last_hidden_state
     x = torch.tanh(_linear(params["classifier"]["dense"], h.mean(dim=1)))
     return _linear(params["classifier"]["out_proj"], x)
 
 
-def predict_emotion(params, wave, cfg: Wav2Vec2Config):
+def predict_emotion(params, wave, cfg: Wav2Vec2Config, attention_mask=None):
     """Softmax emotion scores (B, num_labels) (reference FLOAT.py:396-401)."""
-    return torch.softmax(ser_logits(params, wave, cfg).float(), dim=-1)
+    return torch.softmax(ser_logits(params, wave, cfg,
+                                    attention_mask).float(), dim=-1)

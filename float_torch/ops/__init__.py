@@ -1,6 +1,6 @@
 from .activations import fused_leaky_relu, leaky_relu
 from .equalized import equal_conv2d, equal_linear
-from .interp import linear_interpolate_time
+from .interp import linear_interpolate_time, nearest_interpolate_time
 from .modulated import modulated_conv2d
 from .ode import ODE_TABLEAUS, odeint_fixed
 from .upfirdn import downsample2x, make_blur_kernel, upfirdn2d, upsample2x
@@ -11,7 +11,8 @@ from .yuv420 import i420_to_rgb_u8, rgb01_to_i420
 
 __all__ = [
     "fused_leaky_relu", "leaky_relu", "equal_conv2d", "equal_linear",
-    "linear_interpolate_time", "modulated_conv2d", "ODE_TABLEAUS",
+    "linear_interpolate_time", "nearest_interpolate_time",
+    "modulated_conv2d", "ODE_TABLEAUS",
     "odeint_fixed", "downsample2x", "make_blur_kernel", "upfirdn2d",
     "upsample2x", "identity_grid", "warp_shared", "warp_shared_ref",
     "warp_per_frame", "warp_per_frame_ref", "warp_rgb", "warp_rgb_ref",

@@ -20,3 +20,14 @@ def linear_interpolate_time(x: torch.Tensor, out_len: int) -> torch.Tensor:
     i0 = torch.floor(pos).long().clamp(0, t - 2)
     frac = (pos - i0.float()).to(x.dtype)[None, :, None]
     return x[:, i0, :] * (1 - frac) + x[:, i0 + 1, :] * frac
+
+
+def nearest_interpolate_time(x: torch.Tensor, out_len: int) -> torch.Tensor:
+    """Nearest-neighbour resample (B, T, D) along T to ``out_len``, as
+    torch's 'nearest' mode: output j reads input floor(j * T / out_len)."""
+    b, t, d = x.shape
+    if out_len == t:
+        return x
+    idx = torch.floor(torch.arange(out_len, dtype=torch.float32,
+                                   device=x.device) * (t / out_len)).long()
+    return x[:, idx.clamp(0, t - 1), :]

@@ -69,12 +69,82 @@ def test_synthesis_cast_once():
     assert not torch.backends.cudnn.allow_tf32
 
 
-def test_port_never_imports_jax():
-    code = ("import sys, float_torch, float_torch.runtime.pipeline, "
-            "float_torch.kernels.warp_shared; "
-            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-            "if m.startswith('jax'))")
+def _run_port_code(code: str, timeout: int = 120):
     env = dict(os.environ, PYTHONPATH=REPO)
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 0, proc.stderr
+                          capture_output=True, text=True, timeout=timeout)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return proc.stdout
+
+
+def test_port_never_imports_jax():
+    code = ("import sys, float_torch, float_torch.runtime.pipeline, "
+            "float_torch.kernels.warp_shared, float_torch.api.nodes, "
+            "float_torch.api.comfy, float_torch.runtime.graph, "
+            "float_torch.runtime.workflow, float_torch.io.checkpoint; "
+            "bad = sorted(m for m in sys.modules "
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'float_tpu')); "
+            "assert not bad, bad")
+    _run_port_code(code)
+
+
+# The card's machine has no safetensors, cv2 nor PIL: with the three
+# blocked, a tiny unified checkpoint written by the port loads and
+# graph_regular.json (VHS_VideoCombine muted) runs on the CPU.
+_BLOCKED_PATH = """
+import sys
+for name in ("safetensors", "cv2", "PIL"):
+    sys.modules[name] = None
+import json, os, tempfile
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from float_torch.api.comfy import GraphContext, run_comfy_workflow
+from float_torch.config import FloatConfig, Wav2Vec2Config
+from float_torch.io.checkpoint import save_safetensors, unified_state_dict
+from float_torch.models import init as t_init
+from float_torch.models.init import init_pipeline, params_to_state_dict
+t_init.CHANNELS_MAP = dict.fromkeys(t_init.CHANNELS_MAP, 32)  # cheap decode
+audio = dict(conv_dim=(16, 16, 16), conv_kernel=(10, 3, 3),
+             conv_stride=(5, 2, 2), hidden_size=32, num_hidden_layers=2,
+             num_attention_heads=4, intermediate_size=64,
+             num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+w2v = Wav2Vec2Config(**audio, feat_extract_norm="group")
+ser = Wav2Vec2Config(**audio, feat_extract_norm="layer", conv_bias=True,
+                     do_stable_layer_norm=True, num_labels=7)
+cfg = FloatConfig(input_size=64, dim_w=64, dim_a=64, dim_h=64, dim_m=20,
+                  dim_e=7, fmt_depth=2, num_heads=4, wav2vec_sec=0.4,
+                  num_prev_frames=3, decode_batch=4, compute_dtype="float32")
+flat = unified_state_dict(params_to_state_dict(init_pipeline(cfg, w2v, ser)))
+with tempfile.TemporaryDirectory() as d:
+    os.makedirs(os.path.join(d, "float"))
+    save_safetensors(flat, os.path.join(d, "float", "FLOAT.safetensors"))
+    rng = np.random.default_rng(0)
+    np.save(os.path.join(d, "img.npy"), rng.random((64, 64, 3), np.float32))
+    np.save(os.path.join(d, "aud.npy"),
+            rng.standard_normal(4000).astype(np.float32) * 0.1)
+    wf = json.load(open("example_workflows/graph_regular.json"))
+    for node in wf["nodes"]:
+        if node["type"] == "VHS_VideoCombine":
+            node["mode"] = 2
+    ctx = GraphContext(device="cpu", models_root=d, inputs_dir=d,
+                       output_dir=d, overrides={
+                           "LoadImage": {"image": "img.npy"},
+                           "LoadAudio": {"audio": "aud.npy"},
+                           "LoadFloatModelsOpt": {"cfg": cfg, "w2v_cfg": w2v,
+                                                  "ser_cfg": ser}})
+    results, ctx = run_comfy_workflow(wf, ctx)
+frames = results["4"][0]
+assert frames.shape == (7, 64, 64, 3) and np.isfinite(frames).all()
+assert results["3"][0].weights == "real" and not ctx.artifacts
+for name in ("safetensors", "cv2", "PIL"):
+    assert sys.modules[name] is None, name
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "float_tpu"))
+assert not bad, bad
+print("ok", frames.shape)
+"""
+
+
+def test_node_path_runs_without_safetensors_cv2_pil():
+    assert "ok (7, 64, 64, 3)" in _run_port_code(_BLOCKED_PATH, timeout=300)
