@@ -56,8 +56,26 @@ wrappers.  Phases:
    nodes with their adapters' arguments (ApplyFloatSynthesis: float32,
    8-frame chunks); its latents against the Advanced tier's, its frames
    against a float32 decode of those latents by the graph's pipeline and
-   against the graph's bf16 frames.  The temporary directory is then
-   gone, and no checkpoint file is left in the repository.
+   against the graph's bf16 frames;
+13. the serving daemon: the unified file loaded by ``serve.load_pipe``
+   (as ``serve`` loads it), ``FloatPipeline.warmup`` timed, ``make_server``
+   on 127.0.0.1 driven by the port's ``FloatClient``: ``/health`` names the
+   card; ``/v1/generate`` (an mp4 of 250 frames); the raw NDJSON stream
+   (its frames equal to the in-process stream of the same request, and
+   with ``generate(seed=15)``'s within the bf16 gate of a float32 decode
+   of the same latents; time to the first line at the client, total,
+   delivered frames/s, beside the in-process TTFC); the JPEG stream
+   (against the in-process yuv420 stream's frames through the same JPEG
+   codec); each request from a client process of its own;
+   ``/v1/generate_batch`` of
+   two portraits, 10 s + 6 s; ``/v1/graph`` with graph_regular.json;
+   ``/metrics`` against what was sent; each with its launch counts; then
+   admission (``max_pending`` 1: 503 with Retry-After) and a stalled
+   reader (aborted, the lock freed, the next request served);
+14. the CLI as subprocesses on the card: ``inspect`` of the unified file,
+   ``generate`` and ``generate --stream`` (mp4s of 250 frames, wall time,
+   first-frame latency).  The temporary directory is then gone, and no
+   checkpoint file is left in the repository.
 
 A failed check is printed and the run goes on, so one run reports every
 phase; the script then exits 1 before printing its result lines.
@@ -68,13 +86,17 @@ power limit as nvidia-smi reports them, and last the line
 """
 from __future__ import annotations
 
+import base64
 import dataclasses
 import json
 import math
+import os
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -100,6 +122,7 @@ K1_BATCHES = (24, 12, 8, 4, 1)
 # (make_grid): the staged kernels' windows, their device-memory fallback
 # and coordinates that must never become an index.
 GRID_KINDS = ("smooth", "far", "out", "mixed", "nonfinite")
+# the kernel libraries a parent checkout (``--parent``) builds
 KERNEL_SOURCES = ("warp_shared", "warp_rgb")
 CUDA = "float_torch/kernels/csrc/"
 ROWS = {   # kernel-table rows: the name the wrapper counts launches under
@@ -146,6 +169,17 @@ BF16_DECODE_TOL = 5e-2
 # f32 sampler on inputs made by other node compositions.
 LATENT_TOL = 1e-4
 U8_STEP = 1.0 / 255.0
+# The served raw stream against generate's uint8 of the same request, max
+# |diff| in uint8 levels: two bf16 decodes of one clip in other chunkings
+# (8 frames, then 24 from frame 8; 24 from frame 0), whose convolutions
+# cuDNN sums in other orders.  Readings on an NVIDIA H100 80GB HBM3
+# (700 W), stream as uint8 / 255 against generate's float frames:
+# 1.515e-2 on phase 8's inputs, 2.665e-2 (6.8 levels) on the graph's
+# portrait; 10 levels leave 1.5x over the larger.  Phase 13 holds two
+# faults to it in every run, each of which must exceed it: the frames one
+# place out of order, and the first chunk decoded with its warp grids
+# rounded to bf16.
+STREAM_TOL_LEVELS = 10
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM bytes/s, f32 FLOP/s
 # outside the tensor cores (the warps' multiply-adds run there).
 HBM_BPS = 3.35e12
@@ -161,6 +195,8 @@ SER_DIR = "audio/wav2vec-english-speech-emotion-recognition"
 REPO = Path(__file__).resolve().parent
 
 FAILURES: list = []
+# kernel launches of every driven path, by path: {name: {kernel: n, "K4": n}}
+PATHS: dict = {}
 
 
 def log(msg: str) -> None:
@@ -657,6 +693,7 @@ def phase_config1() -> dict:
         shapes.append(dict(LAUNCH_SHAPES))
     launches = runs[0]
     launches_k4 = k4_launches(shapes[0])
+    PATHS["generate"] = dict(launches, K4=launches_k4)
     check(all(r == launches for r in runs), f"launch counts differ: {runs}")
     latency = sorted(latencies)[1]
     log(f"[config1] clip latency {latency:.4f} s (median of "
@@ -714,6 +751,14 @@ def phase_config1() -> dict:
             "launches_k4": launches_k4}
 
 
+def u8_levels(a, b) -> tuple:
+    """max and mean |a - b| of two uint8 stacks (numpy or torch), in
+    levels, on the card."""
+    d = (torch.as_tensor(a).cuda().int() - torch.as_tensor(b).cuda().int()
+         ).abs()
+    return int(d.max().item()), d.float().mean().item()
+
+
 def run_path(name: str, fn, want: dict, want_k4: int):
     """Run ``fn`` with every launch count at 0 before it; check the counts
     read right after against ``want`` (kernels not named must be 0) and
@@ -727,6 +772,7 @@ def run_path(name: str, fn, want: dict, want_k4: int):
     secs = sync_time() - t0
     got = {k: v for k, v in LAUNCHES.items() if v}
     k4 = k4_launches(LAUNCH_SHAPES)
+    PATHS[name] = dict(got, K4=k4)
     check(got == {k: v for k, v in want.items() if v},
           f"{name}: launches {got}, expected {want}")
     check(k4 == want_k4,
@@ -1092,8 +1138,392 @@ def phase_very_advanced(reg: dict, root: Path, unified: str) -> dict:
     return counts
 
 
+def mp4_frames(path: Path) -> int:
+    """Frames of an mp4 file, counted by reading it with cv2."""
+    import cv2
+    cap = cv2.VideoCapture(str(path))
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+# Phase 13's client, one request per process (``python -c CLIENT op url
+# dir [workflow]``): its JSON and base64 work does not share the server's
+# interpreter lock, as a real client's would not.  It reads the portrait
+# and the audio the graph phase saved in ``dir``, writes what it received
+# there, and prints its timings, taken around the request alone.
+CLIENT = r"""
+import json, sys, time
+from pathlib import Path
+import numpy as np
+from float_torch.client import FloatClient
+op, url, d = sys.argv[1], sys.argv[2], Path(sys.argv[3])
+c = FloatClient(url)
+img, wave = np.load(d / "portrait.npy"), np.load(d / "speech.npy")
+out, t0 = {}, time.perf_counter()
+if op == "generate":
+    video = c.generate(img, wave, seed=15)
+    out["total"] = time.perf_counter() - t0
+    (d / "generate.mp4").write_bytes(video)
+elif op.startswith("stream-"):
+    parts = []
+    for _start, frames in c.stream(img, wave, seed=15, first_chunk=8,
+                                   encoding=op[7:], quality=85):
+        out.setdefault("ttfc", time.perf_counter() - t0)
+        parts.append(frames)
+    out["total"] = time.perf_counter() - t0
+    np.save(d / (op + ".npy"), np.concatenate(parts))
+elif op == "batch":
+    res = c.generate_batch([
+        {"image": img, "audio": wave, "seed": 15},
+        {"image": np.load(d / "portrait2.npy"),
+         "audio": wave[:6 * 16000] * 0.8, "seed": 16}])
+    out["total"] = time.perf_counter() - t0
+    out["frames"] = [r["frames"] for r in res]
+    for i, r in enumerate(res):
+        (d / f"batch{i}.mp4").write_bytes(r["video"])
+elif op == "graph":
+    arts = c.run_graph(json.loads(Path(sys.argv[4]).read_text()),
+                       inputs={"portrait.npy": img, "speech.npy": wave},
+                       overrides={"LoadImage": {"image": "portrait.npy"},
+                                  "LoadAudio": {"audio": "speech.npy"}})
+    out["total"] = time.perf_counter() - t0
+    out["artifacts"] = sorted(arts)
+    for name, blob in arts.items():
+        (d / ("graph-" + Path(name).name)).write_bytes(blob)
+print(json.dumps(out))
+"""
+
+
+def run_client(op: str, url: str, root: Path, *extra) -> dict:
+    """One request of ``CLIENT`` in its own process; its printed timings."""
+    proc = subprocess.run(
+        [sys.executable, "-c", CLIENT, op, url, str(root), *extra], cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=str(REPO)), capture_output=True,
+        text=True, timeout=300)
+    if proc.returncode:
+        raise RuntimeError(f"client {op} exited {proc.returncode}:\n"
+                           f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def start_server(pipe, **opts):
+    """``make_server`` on 127.0.0.1 (a free port) serving in a thread."""
+    from float_torch.serve import make_server
+    httpd = make_server(pipe, "127.0.0.1", 0, **opts)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, f"http://127.0.0.1:{httpd.server_address[1]}"
+
+
+def stop_server(httpd) -> None:
+    httpd.shutdown()
+    httpd.server_close()
+
+
+def phase_serve(c1: dict, reg: dict, root: Path, unified: str) -> None:
+    """13. The serving daemon on config 1, loaded as ``serve`` loads it."""
+    import http.client
+    import urllib.error
+    from float_torch.api.nodes import (comfy_image_to_model_input,
+                                       normalize_waveform)
+    from float_torch.client import FloatClient, _b64, _jpeg_to_rgb
+    from float_torch.io.video import video_backend
+    from float_torch.ops.warp import DISPATCH
+    from float_torch.ops.yuv420 import i420_to_rgb_u8
+    from float_torch.runtime.decode import (_prepare, decode_chunk,
+                                            stream_chunk_count)
+    from float_torch.serve import _jpeg_encode_frames, load_pipe
+
+    cfg = c1["pipe"].cfg
+    check(video_backend() != "", "no mp4 writer (cv2 or ffmpeg) for serving")
+    # as ``python -m float_torch.cli serve --checkpoint <file>
+    # --decode-batch 24`` loads it
+    t0 = sync_time()
+    pipe = load_pipe(unified, decode_batch=cfg.decode_batch)
+    t_load = sync_time() - t0
+    check(pipe.cfg == cfg, f"serve's configuration {pipe.cfg} is not "
+          f"config 1's {cfg}")
+    warm = pipe.pipeline.warmup()
+    log(f"[serve] load_pipe(decode_batch={pipe.cfg.decode_batch}) "
+        f"{t_load:.2f} s onto {pipe.pipeline.device}; FloatPipeline.warmup "
+        f"{warm:.2f} s")
+    img, wave = reg["img"], reg["audio"]["waveform"][0, 0]
+    size, t_frames = cfg.input_size, c1["frames"].shape[0]
+    n_lv = len(LEVELS)
+    n_chunks = math.ceil(t_frames / cfg.decode_batch)
+    n_stream = stream_chunk_count(t_frames, cfg.decode_batch, 8)
+    model_in, _ = comfy_image_to_model_input(img, size)
+    wave_n = normalize_waveform(wave)[None]
+
+    httpd, url = start_server(pipe)
+    try:
+        client = FloatClient(url)
+        health = client.health()
+        log(f"[serve] /health {health}")
+        check(health["status"] == "ok" and health["device"] == "cuda"
+              and health["device_name"] == torch.cuda.get_device_name(0)
+              and health["weights"] == "real", f"/health {health}")
+
+        got, secs, _ = run_path(
+            "/v1/generate", lambda: run_client("generate", url, root),
+            {"warp_shared": n_lv * n_chunks}, n_chunks)
+        mp4 = root / "generate.mp4"
+        n = mp4_frames(mp4)
+        log(f"[serve] /v1/generate: {got['total']:.3f} s at the client "
+            f"({secs:.3f} s with its process) for a "
+            f"{mp4.stat().st_size / 1e6:.2f} MB mp4 of {n} frames")
+        check(n == t_frames, f"/v1/generate mp4 holds {n} frames")
+
+        def local_stream(wire):
+            t0, first, parts = sync_time(), None, []
+            for _s, part in pipe.pipeline.generate_stream(
+                    model_in, wave_n, seed=15, first_chunk=8, wire=wire):
+                first = first or time.perf_counter() - t0
+                parts.append(part)
+            return np.concatenate(parts), first, sync_time() - t0
+
+        def in_new_thread(fn, *args):
+            """``fn(*args)`` on a thread of its own, as the server runs a
+            stream's generation."""
+            box = []
+            worker = threading.Thread(target=lambda: box.append(fn(*args)))
+            worker.start()
+            worker.join()
+            return box[0]
+
+        # generate's uint8 (the u8 wire's rounding) and the same request's
+        # first decode chunk, decoded again as generate decodes it and with
+        # its warp grids rounded to bf16 (a fault the gate must see)
+        pl, nb = pipe.pipeline, cfg.decode_batch
+        with torch.inference_mode():
+            gen_u8 = torch.round(pl.generate(model_in, wave_n, seed=15)
+                                 * 255.0).to(torch.uint8)
+            s_r, _lam, feats, r_s = pl.encode_image(model_in)
+            wa = pl.encode_audio(wave_n, t_frames)
+            r_d = pl.sample(r_s, wa, pl.emotion_latent(wave_n, "none"),
+                            seed=15)
+            wa_c, feats_c = _prepare(s_r, feats, r_d[0, :nb], nb,
+                                     pl.compute_dtype)
+            again = decode_chunk(pl.syn_cast, wa_c, feats_c, size,
+                                 out_u8=True)
+            coarse = decode_chunk(
+                pl.syn_cast, wa_c, feats_c, size, out_u8=True,
+                warps=DISPATCH._replace(shared=lambda f, g: DISPATCH.shared(
+                    f, g.to(torch.bfloat16).float())))
+        for enc in ("raw", "jpeg"):
+            got, _, _ = run_path(
+                f"/v1/generate stream {enc}",
+                lambda: run_client(f"stream-{enc}", url, root),
+                {"warp_shared": n_lv * n_stream}, n_stream)
+            frames = np.load(root / f"stream-{enc}.npy")
+            wire = "u8" if enc == "raw" else "yuv420"
+            local, l_ttfc, l_total = local_stream(wire)
+            _, t_ttfc, t_total = in_new_thread(local_stream, wire)
+            log(f"[serve] stream {enc}: first line at the client after "
+                f"{got['ttfc'] * 1e3:.1f} ms, all {frames.shape[0]} frames "
+                f"after {got['total'] * 1e3:.1f} ms, "
+                f"{frames.shape[0] / got['total']:.2f} delivered frames/s; in "
+                f"process (generate_stream, same wire) first chunk "
+                f"{l_ttfc * 1e3:.1f} ms, all {l_total * 1e3:.1f} ms; the same "
+                f"on a new thread {t_ttfc * 1e3:.1f} and {t_total * 1e3:.1f} ms")
+            check(frames.shape == (t_frames, size, size, 3),
+                  f"stream {enc}: frames {frames.shape}")
+            if enc == "jpeg":
+                local = np.stack([_jpeg_to_rgb(b) for b in _jpeg_encode_frames(
+                    i420_to_rgb_u8(local), 85)])
+            # the served frames are the in-process stream's of the same
+            # request (one process, one decode), through the same JPEG
+            # codec for "jpeg": equal, as the CPU tests hold them
+            d_max, d_mean = u8_levels(frames, local) \
+                if frames.shape == local.shape else (255, 255.0)
+            log(f"[serve] stream {enc} vs the in-process stream of the same "
+                f"request{' through the same codec (q85)' if enc == 'jpeg' else ''}"
+                f": max|diff| {d_max} levels, mean {d_mean:.3e} (gate: 0)")
+            check(d_max == 0, f"stream {enc} vs in-process: max|diff| "
+                  f"{d_max} levels")
+            if enc == "raw":
+                sound = u8_levels(frames, gen_u8)
+                same = u8_levels(again, gen_u8[:nb])
+                shifted = u8_levels(frames[1:], gen_u8[:-1])
+                rounded = u8_levels(coarse, gen_u8[:nb])
+                log(f"[serve] raw stream vs generate(seed=15)'s uint8: max "
+                    f"|diff| {sound[0]} levels, mean {sound[1]:.3e} (gate "
+                    f"{STREAM_TOL_LEVELS}); generate's first chunk decoded "
+                    f"again {same[0]}, mean {same[1]:.3e}; faults: frames "
+                    f"one place out of order {shifted[0]}, mean "
+                    f"{shifted[1]:.3e}, the first chunk with bf16 warp grids"
+                    f" {rounded[0]}, mean {rounded[1]:.3e}")
+                check(sound[0] <= STREAM_TOL_LEVELS and same[0]
+                      <= STREAM_TOL_LEVELS, f"raw stream vs generate: "
+                      f"{sound[0]} levels, the chunk decoded again {same[0]}"
+                      f" (gate {STREAM_TOL_LEVELS})")
+                check(shifted[0] > STREAM_TOL_LEVELS
+                      and rounded[0] > STREAM_TOL_LEVELS,
+                      f"a fault passes the stream gate: out of order "
+                      f"{shifted[0]}, bf16 grids {rounded[0]} levels")
+
+        # the raw wire's host cost for one 24-frame chunk: what the server
+        # does to put a line out, and what a client does to read it back
+        u8 = np.ascontiguousarray(np.load(root / "stream-raw.npy")[:24])
+        t0 = time.perf_counter()
+        line = json.dumps({"start": 0, "shape": list(u8.shape),
+                           "dtype": "uint8", "data": base64.b64encode(
+                               u8.tobytes()).decode()}).encode()
+        t1 = time.perf_counter()
+        msg = json.loads(line)
+        back = np.frombuffer(base64.b64decode(msg["data"]), np.uint8)
+        t2 = time.perf_counter()
+        check(back.tobytes() == u8.tobytes(), "raw wire round trip")
+        log(f"[serve] raw wire, one 24-frame line ({len(line) / 1e6:.1f} MB) "
+            f"on this host: base64 + JSON {(t1 - t0) * 1e3:.1f} ms, back "
+            f"{(t2 - t1) * 1e3:.1f} ms")
+
+        rng = np.random.default_rng(1)
+        np.save(root / "portrait2.npy", rng.integers(
+            0, 256, (size, size, 3)).astype(np.float32) / 255)
+        t2 = math.ceil(6 * cfg.fps)
+        n_b = n_chunks + math.ceil(t2 / cfg.decode_batch)
+        got, _, _ = run_path(
+            "/v1/generate_batch 10 s + 6 s",
+            lambda: run_client("batch", url, root),
+            {"warp_shared": n_lv * n_b}, n_b)
+        counts = [(n, mp4_frames(root / f"batch{i}.mp4"))
+                  for i, n in enumerate(got["frames"])]
+        log(f"[serve] /v1/generate_batch: {got['total']:.3f} s at the client, "
+            f"(frames, mp4 frames) {counts}")
+        check(counts == [(t_frames, t_frames), (t2, t2)],
+              f"/v1/generate_batch clips {counts}")
+
+        got, _, _ = run_path(
+            "/v1/graph graph_regular.json", lambda: run_client(
+                "graph", url, root,
+                str(REPO / "example_workflows" / "graph_regular.json")),
+            {"warp_shared": n_lv * n_chunks}, n_chunks)
+        names = got["artifacts"]
+        n = mp4_frames(root / f"graph-{Path(names[0]).name}") \
+            if len(names) == 1 else -1
+        log(f"[serve] /v1/graph: {got['total']:.3f} s at the client, "
+            f"artifacts {names}, {n} frames")
+        check(len(names) == 1 and names[0].endswith(".mp4") and n == t_frames,
+              f"/v1/graph artifacts {names}, {n} frames")
+
+        # generate, 2 streams, batch: counted; the graph only waits on the
+        # lock and adds to the latencies
+        sent = (4, t_frames * 3 + t_frames + t2, 5)
+        deadline = time.perf_counter() + 10
+        while (client.metrics()["latency_seconds"] or {}).get("count", 0) \
+                < sent[2] and time.perf_counter() < deadline:
+            time.sleep(0.02)
+        m = client.metrics()
+        log(f"[serve] /metrics {json.dumps(m)}")
+        lat = m["latency_seconds"] or {}
+        check((m["requests"], m["frames"], lat.get("count")) == sent
+              and m["errors"] == m["rejected_busy"] == m["stream_aborts"]
+              == m["queue_depth"] == 0
+              and m["frames_per_busy_second"]
+              == round(m["frames"] / m["busy_seconds"], 2)
+              and 0 < lat["p50"] <= lat["p95"] <= lat["p99"] <= lat["max"]
+              and m["lock_wait_seconds"]["count"] == sent[2],
+              f"/metrics {m}, expected (requests, frames, latencies) {sent}")
+    finally:
+        stop_server(httpd)
+
+    # admission: one request holds the only slot, the others get 503
+    httpd, url = start_server(pipe, max_pending=1)
+    try:
+        def fire(_):
+            try:
+                FloatClient(url).generate(img, wave, seed=15)
+                return 200, None
+            except urllib.error.HTTPError as exc:
+                return exc.code, exc.headers.get("Retry-After")
+
+        with ThreadPoolExecutor(3) as ex:
+            codes = list(ex.map(fire, range(3)))
+        m = FloatClient(url).metrics()
+        n503 = sum(c == 503 for c, _ in codes)
+        log(f"[serve] max_pending=1, 3 requests at once: (status, "
+            f"Retry-After) {codes}; rejected_busy {m['rejected_busy']}")
+        check(n503 >= 1 and any(c == 200 for c, _ in codes)
+              and all(c in (200, 503) for c, _ in codes)
+              and all(int(r) >= 1 for c, r in codes if c == 503)
+              and m["rejected_busy"] == n503, f"admission: {codes}, {m}")
+    finally:
+        stop_server(httpd)
+
+    # a stalled reader: one line read, then nothing
+    httpd, url = start_server(pipe, stream_buffer_mb=1,
+                              stream_stall_timeout=2.0)
+    srv = httpd.RequestHandlerClass.srv
+    conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1],
+                                      timeout=120)
+    try:
+        conn.request("POST", "/v1/generate", body=json.dumps(
+            {"image": _b64(img), "audio": _b64(wave), "seed": 15,
+             "stream": True, "first_chunk": 8}),
+            headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        first = json.loads(resp.readline())
+        t0 = time.perf_counter()
+        while srv.metrics()["stream_aborts"] == 0 \
+                and time.perf_counter() - t0 < 60:
+            time.sleep(0.05)
+        t_abort = time.perf_counter() - t0
+        freed = not srv.lock.locked()
+        (root / "next.mp4").write_bytes(FloatClient(url).generate(
+            img, wave[:2 * cfg.sampling_rate], seed=15))
+        n = mp4_frames(root / "next.mp4")
+        log(f"[serve] stalled reader (1 MB buffer, 2 s stall timeout): "
+            f"status {resp.status}, first line start {first['start']}, "
+            f"aborted {t_abort:.2f} s after the last read "
+            f"(stream_aborts {srv.metrics()['stream_aborts']}), lock free "
+            f"{freed}; the next request: an mp4 of {n} frames")
+        check(resp.status == 200 and srv.metrics()["stream_aborts"] == 1
+              and freed and n == 50, "stalled reader: not aborted, lock "
+              "held or the next request failed")
+    finally:
+        conn.close()
+        stop_server(httpd)
+
+
+def phase_cli(root: Path, unified: str, decode_batch: int) -> None:
+    """14. ``python -m float_torch.cli`` as subprocesses on the card,
+    generating at config 1's ``decode_batch``."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+
+    def cli(*args):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "float_torch.cli", *args],
+                              cwd=REPO, env=env, capture_output=True,
+                              text=True, timeout=300)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"cli {args[0]} exited "
+              f"{proc.returncode}: {proc.stderr[-3000:]}")
+        return proc.stdout, secs
+
+    out, secs = cli("inspect", unified)
+    log(f"[cli] inspect, {secs:.2f} s wall:\n" + out.rstrip())
+    check("617.5 M params" in out.splitlines()[0] and "synthesis arch:" in out
+          and "fmt arch:" in out, "cli inspect output")
+    for extra in ((), ("--stream",)):
+        mp4 = root / f"cli{''.join(extra)}.mp4"
+        out, secs = cli("generate", "--checkpoint", unified, "--image",
+                        str(root / "portrait.npy"), "--audio",
+                        str(root / "speech.npy"), "--output", str(mp4),
+                        "--decode-batch", str(decode_batch), "--no-progress",
+                        *extra)
+        n = mp4_frames(mp4) if mp4.exists() else 0
+        first = re.search(r"first frames after ([0-9.]+)s", out)
+        log(f"[cli] generate {' '.join(extra)}: {secs:.2f} s wall, mp4 of {n}"
+            f" frames; it printed: {' | '.join(out.strip().splitlines())}")
+        check(n == 250 and "generated 250 frames" in out
+              and bool(first) == bool(extra), f"cli generate {extra}: {out}")
+
+
 def phase_nodes(c1: dict) -> dict:
-    """Phases 9-12 in one temporary directory outside the repository,
+    """Phases 9-14 in one temporary directory outside the repository,
     which is gone afterwards."""
     n_chunks = math.ceil(c1["frames"].shape[0] / c1["pipe"].cfg.decode_batch)
     counts = {}
@@ -1107,6 +1537,12 @@ def phase_nodes(c1: dict) -> dict:
         counts["graph_regular.json"] = reg["counts"]
         counts["advanced"], reg["r_d"] = phase_advanced(reg, n_chunks)
         counts["very_advanced"] = phase_very_advanced(reg, root, unified)
+        t0 = time.perf_counter()
+        phase_serve(c1, reg, root, unified)
+        log(f"[serve] phase {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_cli(root, unified, c1["pipe"].cfg.decode_batch)
+        log(f"[cli] phase {time.perf_counter() - t0:.1f} s")
     left = sorted(str(p) for p in REPO.rglob("*.safetensors"))
     check(not Path(tmp).exists() and not left,
           f"checkpoint files left behind: {tmp} exists "
@@ -1136,8 +1572,7 @@ def main() -> int:
         for m in ("safetensors", "cv2", "PIL", "face_alignment"))
         + f"; ffmpeg {'on' if shutil.which('ffmpeg') else 'not on'} PATH")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
-        libs = list(ex.map(build.build, KERNEL_SOURCES))
+    libs = build.build_all()
     log(f"[build] {', '.join(p.name for p in libs)} in "
         f"{time.perf_counter() - t0:.2f} s")
 
@@ -1167,7 +1602,11 @@ def main() -> int:
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed")
         return 1
-    kernels = [dict(ROWS[k], launches=launches[k], **rows[k])
+    names = {"K1": "warp_shared", "K2": "warp_rgb", "K3": "warp_per_frame",
+             "K4": "K4"}
+    kernels = [dict(ROWS[k], launches=launches[k], **rows[k],
+                    launches_by_path={p: c.get(names[k], 0)
+                                      for p, c in PATHS.items()})
                for k in ("K1", "K2", "K3", "K4")]
     log(json.dumps({"kernels": kernels}))
     smi = subprocess.run(

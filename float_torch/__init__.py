@@ -13,6 +13,11 @@ each function's twin is easy to find:
 - ``runtime``  the pipeline stages (encode / sample / decode) and the
                host-delivery entry points (decode to host, streaming,
                batches of clips)
+- ``io``, ``image``, ``audio``, ``api``  checkpoints, host media and the
+               ComfyUI node surface
+- ``utils``    FLOP and parameter counts, stage timing, logging
+- ``serve``, ``client``, ``cli``  the HTTP daemon, its client and the
+               command line (``python -m float_torch.cli``)
 
 The package imports ``torch`` and never ``jax`` nor ``float_tpu``.
 """

@@ -14,12 +14,15 @@ import hashlib
 import os
 import shutil
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "float_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# every kernel library of the package, one per csrc/<name>.cu
+SOURCES = ("warp_shared", "warp_rgb")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -73,3 +76,9 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LOADED:
         _LOADED[name] = ctypes.CDLL(str(build(name)))
     return _LOADED[name]
+
+
+def build_all() -> list[Path]:
+    """Build every kernel library of ``SOURCES`` at once, one nvcc each."""
+    with ThreadPoolExecutor(len(SOURCES)) as ex:
+        return list(ex.map(build, SOURCES))

@@ -11,6 +11,7 @@ host-delivery entry points on one torch device (twin of
     decode_to_host  : frames into host memory, chunk by chunk
     generate_stream : frames yielded chunk by chunk while sampling goes on
     generate_batch  : several clips (ragged audio too) -> numpy clips
+    warmup          : the serving paths run once before the first request
 
 The pipeline runs on ``device`` ("cuda" unless the caller passes another);
 without a CUDA device, ``device="cpu"`` must be given.  Weights load into
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import copy
 import math
+import time
 from typing import NamedTuple, Optional
 
 import torch
@@ -345,6 +347,36 @@ class FloatPipeline:
             self.syn_cast, s_r, feats, latent_pieces(),
             uint8_transfer=uint8_transfer, frame_callback=cb,
             first_chunk=first_chunk, emit=wire, **self._decode_args())
+
+    def warmup(self, seconds: float = 2.0, first_chunk: int = 8) -> float:
+        """Run the serving paths once before the first request: on the
+        card this builds both kernel libraries (``kernels.build.build_all``)
+        and lets cuDNN pick its algorithms for the full and first-chunk
+        decode shapes.  One ``generate`` and one ``generate_stream`` per
+        serving wire ("u8" raw, "yuv420" JPEG delivery) on seeded inputs of
+        ``seconds`` of audio, closed by a synchronize.  Returns the wall
+        seconds spent.  ``cli serve --warm`` calls this before binding the
+        port."""
+        t0 = time.perf_counter()
+        if self.device.type == "cuda":
+            from ..kernels.build import build_all
+            build_all()
+        cfg = self.cfg
+        gen = torch.Generator().manual_seed(0)
+        img = 0.1 * torch.randn((1, 3, cfg.input_size, cfg.input_size),
+                                generator=gen)
+        wave = 0.05 * torch.randn((1, int(seconds * cfg.sampling_rate)),
+                                  generator=gen)
+        self.generate(img, wave, emotion="none", seed=cfg.seed)
+        for wire in ("u8", "yuv420"):
+            for _chunk in self.generate_stream(img, wave, emotion="none",
+                                               seed=cfg.seed,
+                                               first_chunk=first_chunk,
+                                               wire=wire):
+                pass
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
 
     @torch.inference_mode()
     def generate_batch(self, imgs, waves, *, emotion: str = "none",

@@ -81,11 +81,63 @@ def test_port_never_imports_jax():
     code = ("import sys, float_torch, float_torch.runtime.pipeline, "
             "float_torch.kernels.warp_shared, float_torch.api.nodes, "
             "float_torch.api.comfy, float_torch.runtime.graph, "
-            "float_torch.runtime.workflow, float_torch.io.checkpoint; "
+            "float_torch.runtime.workflow, float_torch.io.checkpoint, "
+            "float_torch.serve, float_torch.client, float_torch.cli, "
+            "float_torch.utils.flops, float_torch.utils.inspect, "
+            "float_torch.utils.logging, float_torch.utils.profiling; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'float_tpu')); "
             "assert not bad, bad")
     _run_port_code(code)
+
+
+def test_cli_serve_client_run_without_jax():
+    """``cli --help``, a server with a tiny CPU pipeline answering /health
+    and a stream through the port's FloatClient, in one process that
+    imports neither JAX nor float_tpu."""
+    code = """
+import sys, threading
+import numpy as np, torch
+torch.set_num_threads(1)
+from float_torch import cli
+try:
+    cli.main(["--help"])
+except SystemExit as exc:
+    assert exc.code == 0
+from float_torch.api.types import FloatPipe
+from float_torch.client import FloatClient
+from float_torch.config import FloatConfig, Wav2Vec2Config
+from float_torch.models import init as t_init
+from float_torch.runtime.pipeline import build_synthetic_pipeline
+from float_torch.serve import make_server
+t_init.CHANNELS_MAP = dict.fromkeys(t_init.CHANNELS_MAP, 32)
+audio = dict(conv_dim=(16, 16, 16), conv_kernel=(10, 3, 3),
+             conv_stride=(5, 2, 2), hidden_size=32, num_hidden_layers=2,
+             num_attention_heads=4, intermediate_size=64,
+             num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+cfg = FloatConfig(input_size=64, dim_w=64, dim_a=64, dim_h=64, dim_m=20,
+                  dim_e=7, fmt_depth=2, num_heads=4, wav2vec_sec=0.4,
+                  num_prev_frames=3, decode_batch=4, compute_dtype="float32")
+pipe = build_synthetic_pipeline(
+    cfg, Wav2Vec2Config(**audio, feat_extract_norm="group"),
+    Wav2Vec2Config(**audio, feat_extract_norm="layer", conv_bias=True,
+                   do_stable_layer_norm=True, num_labels=7), device="cpu")
+httpd = make_server(FloatPipe(pipe, cfg, weights="synthetic"), port=0)
+threading.Thread(target=httpd.serve_forever, daemon=True).start()
+c = FloatClient(f"http://127.0.0.1:{httpd.server_address[1]}")
+assert c.health()["device"] == "cpu"
+rng = np.random.default_rng(0)
+n = sum(f.shape[0] for _, f in c.stream(
+    rng.random((64, 64, 3)).astype(np.float32),
+    (rng.standard_normal(4000) * 0.1).astype(np.float32)))
+httpd.shutdown()
+assert n == 7, n
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "float_tpu"))
+assert not bad, bad
+print("ok", n)
+"""
+    assert "ok 7" in _run_port_code(code)
 
 
 # The card's machine has no safetensors, cv2 nor PIL: with the three
