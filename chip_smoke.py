@@ -30,7 +30,9 @@ wrappers.  Phases:
    three timed clips (median), the launch counts of each checked;
 6. the first decode chunk through the kernels and through the plain
    warps, and the largest tap displacement of its flows at each level;
-7. K3 (``warp_per_frame``) at every level of a 512² decode, K2
+7. K3 (``warp_per_frame``) at every level of a 512² decode and, through
+   ``grid_sample_bilinear``, at channel counts that fill no 16-byte
+   vector (an RGB image in bf16, C = 5 in float32), K2
    (``warp_rgb``) at the 128²..512² levels and K4's shapes through K1
    (the last two on every grid kind), each against its plain version,
    then each kernel's row of the kernel table: ms, plain ms, library ms
@@ -38,11 +40,25 @@ wrappers.  Phases:
 8. config 1's other paths, each with its launch counts: a decode with the
    ToRGB in the last warp (K2), a one-frame-chunk decode (K3), decode to
    host, ``generate_stream`` on the u8 and 4:2:0 wires, and
-   ``generate_batch`` of two portraits with 10 s and 6 s of audio;
+   ``generate_batch`` of two portraits with 10 s and 6 s of audio; each
+   decode gate has controls that must exceed it (the path's frames one
+   place out of order; a chunk decoded with its warp grids rounded to
+   bf16);
 9. the checkpoint at full width: config 1's parameters written as a
    unified FLOAT.safetensors by the port's own writer into a temporary
    directory outside the repository, loaded by ``load_float_models`` onto
-   the card, every tensor equal;
+   the card, every tensor equal; then cut into the part files of
+   ``extract_parts --all``, its audio folders made HF folders;
+9b. readiness (``float_torch.tools.readiness_check``): the unified file,
+   the part files and the HF folders loaded and held equal, then parity
+   on the card in float32 against ``tests/fixtures/float_tpu_config1_f32
+   .npz`` (float_tpu's stages at config 1's widths, recorded on the CPU),
+   one line per stage, K1's launches in its decode counted (the
+   ``parity`` path); two controls must fail the stage each names (the
+   sampler fed the recorded noise in reversed chunk order: ``r_d``; the
+   frames decoded with bf16 warp grids: ``frames``); the recorded latents
+   decoded in bf16, which the reference's frame budget admits, are read
+   and shown to differ from the float32 decode;
 10. the Regular tier: ``example_workflows/graph_regular.json`` through the
    graph executor (LoadFloatModelsOpt reads that file; a 512² portrait
    and 10 s of audio as .npy inputs; VHS_VideoCombine writes its mp4 when
@@ -50,8 +66,8 @@ wrappers.  Phases:
    against the loaded pipeline's ``generate(seed=15)``, K1's launches;
 11. the Advanced tier: the split nodes on the loaded pipe, its frames
    against the graph's;
-12. the Very Advanced tier: the part files and the two HF folders cut from
-   the unified file, the six loaders (widths inferred from the
+12. the Very Advanced tier: phase 9's part files and HF folders, the six
+   loaders (widths inferred from the
    checkpoints, checked against the published ones) and the eight apply
    nodes with their adapters' arguments (ApplyFloatSynthesis: float32,
    8-frame chunks); its latents against the Advanced tier's, its frames
@@ -185,14 +201,11 @@ STREAM_TOL_LEVELS = 10
 HBM_BPS = 3.35e12
 F32_FLOPS = 67e12
 
-# The model store's layout under a models root (float_torch/io/download.py)
-PART_FILES = {"encoder": "float/motion_autoencoder/encoder.safetensors",
-              "decoder": "float/motion_autoencoder/decoder.safetensors",
-              "projection": "float/audio_projections/projection.safetensors",
-              "fmt": "float/fmt/fmt.safetensors"}
-W2V_DIR = "audio/wav2vec2-base-960h"
-SER_DIR = "audio/wav2vec-english-speech-emotion-recognition"
 REPO = Path(__file__).resolve().parent
+# float_tpu's stages at config 1's widths in float32, recorded on the CPU
+# (tests/test_torch_fullwidth.py --record), which the readiness phase
+# holds the port to
+FIXTURE = REPO / "tests" / "fixtures" / "float_tpu_config1_f32.npz"
 
 FAILURES: list = []
 # kernel launches of every driven path, by path: {name: {kernel: n, "K4": n}}
@@ -507,6 +520,26 @@ def phase_kernel_variants(gen: torch.Generator, parent=None) -> dict:
                         warp_per_frame_ref(feat, grid), tol))
         log(f"[kernel] warp_per_frame {size}^2 C={c}: agrees with the plain "
             f"version (bf16 and f32, B 1 and 4)")
+    # channels that fill no 16-byte vector (an RGB image at a size the TPU
+    # kernel takes), one channel a thread, through grid_sample_bilinear
+    from float_torch.kernels import LAUNCHES
+    from float_torch.ops.warp import (grid_sample_bilinear,
+                                      grid_sample_bilinear_ref)
+    for size, c, dtype in ((256, 3, torch.bfloat16), (64, 5, torch.float32)):
+        feat = rand_feat(gen, 2, size, c, dtype).permute(0, 3, 1, 2)
+        tol = (BF16_TOL if dtype == torch.bfloat16 else F32_TOL) \
+            * feat.float().abs().max().item()
+        for kind in ("smooth", "far", "out"):
+            grid = make_grid(kind, 2, size, gen)
+            before = LAUNCHES["warp_per_frame"]
+            out = grid_sample_bilinear(feat, grid)
+            check(LAUNCHES["warp_per_frame"] == before + 1,
+                  f"grid_sample_bilinear C={c} {dtype}: K3 not launched")
+            errs["K3"] = max(errs["K3"], compare(
+                f"grid_sample_bilinear {size}²xC{c} B=2 {dtype} {kind}", out,
+                grid_sample_bilinear_ref(feat, grid), tol))
+        log(f"[kernel] warp_per_frame {size}^2 C={c} {dtype}: K3 through "
+            f"grid_sample_bilinear agrees with the plain version")
 
     for size, c in ((128, 128), (256, 64), (512, 32)):
         wk = torch.randn((3, c), generator=gen, device="cuda") / math.sqrt(c)
@@ -795,10 +828,32 @@ def check_frames(name: str, got, ref, tol: float,
     check(err <= tol, f"{name}: vs {ref_name} max|diff| {err} > {tol}")
 
 
+def out_of_order(name: str, got, ref, tol: float) -> None:
+    """A control of a decode gate: ``got``'s frames one place out of order
+    against ``ref`` must exceed ``tol``, or the gate could not see such a
+    fault."""
+    got = torch.as_tensor(got).float().to(ref.device)
+    err = (got[1:] - ref[:-1]).abs().max().item()
+    log(f"[path] {name}: control, frames one place out of order: max|diff| "
+        f"{err:.3e} (must exceed {tol:.3g})")
+    check(err > tol, f"{name}: frames out of order pass the gate ({err} <= "
+          f"{tol})")
+
+
+def bf16_grid_warps():
+    """The decode's warps with every shared-map grid rounded to bf16 (up
+    to half a pixel at 512²): a fault the decode gates must see."""
+    from float_torch.ops.warp import DISPATCH
+    return DISPATCH._replace(shared=lambda f, g: DISPATCH.shared(
+        f, g.to(torch.bfloat16).float()))
+
+
 def phase_paths(c1: dict) -> dict:
-    """Config 1's other paths through the entry points a user calls."""
+    """Config 1's other paths through the entry points a user calls; each
+    gate against ``generate``'s frames with its controls."""
     from float_torch.ops.yuv420 import i420_to_rgb_u8, rgb01_to_i420
-    from float_torch.runtime.decode import decode_latents
+    from float_torch.runtime.decode import (_prepare, decode_chunk,
+                                            decode_latents)
     pipe, frames = c1["pipe"], c1["frames"]
     s_r, feats, r_d = c1["s_r"], c1["feats"], c1["r_d"][0]
     t_frames = r_d.shape[0]
@@ -826,6 +881,7 @@ def phase_paths(c1: dict) -> dict:
         "decode rgb_in_kernel=True", lambda: decode(rgb_in_kernel=True),
         {"warp_shared": (n_lv - 1) * n_chunks, "warp_rgb": n_chunks}, 0)
     check_frames("decode rgb_in_kernel=True", out, frames, DECODE_TOL)
+    out_of_order("decode rgb_in_kernel=True", out, frames, DECODE_TOL)
 
     # one-frame decode chunks: every level warps per frame (K3)
     out, secs, counts["decode_batch=1"] = run_path(
@@ -834,11 +890,25 @@ def phase_paths(c1: dict) -> dict:
     log(f"[path] decode_batch=1: {t_frames} frames in {secs:.3f} s, "
         f"{t_frames / secs:.2f} frames/s")
     check_frames("decode decode_batch=1", out, frames, DECODE_TOL)
+    out_of_order("decode decode_batch=1", out, frames, DECODE_TOL)
 
     out, _, counts["decode_to_host"] = run_path(
         "decode_to_host", lambda: pipe.decode_to_host(s_r, feats, r_d),
         {"warp_shared": n_lv * n_chunks}, n_chunks)
     check_frames("decode_to_host", out, frames, DECODE_TOL + U8_STEP)
+    out_of_order("decode_to_host", out, frames, DECODE_TOL + U8_STEP)
+    # the gate's other control: generate's first chunk decoded again with
+    # its warp grids rounded to bf16
+    nb = pipe.cfg.decode_batch
+    wa_c, feats_c = _prepare(s_r, feats, r_d[:nb], nb, pipe.compute_dtype)
+    with torch.inference_mode():
+        coarse = decode_chunk(pipe.syn_cast, wa_c, feats_c, size,
+                              warps=bf16_grid_warps())
+    err = (coarse - frames[:nb]).abs().max().item()
+    log(f"[path] control, generate's first chunk with bf16 warp grids: max"
+        f"|diff| {err:.3e} (must exceed DECODE_TOL {DECODE_TOL:.3g})")
+    check(err > DECODE_TOL, f"a chunk with bf16 warp grids passes "
+          f"DECODE_TOL ({err} <= {DECODE_TOL})")
 
     def stream(wire):
         t0 = time.perf_counter()
@@ -1037,44 +1107,135 @@ def phase_advanced(reg: dict, n_chunks: int) -> dict:
     return counts, r_d
 
 
-def write_hf_folder(unified: str, part: str, d: Path, cfg, labels=()):
-    """An HF folder cut from the unified file: model.safetensors and a
-    config.json of ``cfg`` (with id2label for a classifier)."""
-    from float_torch.io.download import extract_part
-    check(extract_part(unified, part, str(d / "model.safetensors")),
-          f"no {part} in {unified}")
-    raw = dataclasses.asdict(cfg)
-    if labels:
-        raw["id2label"] = {str(i): lbl for i, lbl in enumerate(labels)}
-    (d / "config.json").write_text(json.dumps(raw))
+def cut_store(unified: str, root: Path) -> Path:
+    """The part files of ``extract_parts --all`` cut from the unified file
+    under ``root/float``, with a config.json in each audio folder, which
+    makes it an HF folder: the layouts the readiness phase loads and the
+    Very Advanced loaders read."""
+    from float_torch.config import (EMOTION_LABELS, WAV2VEC2_BASE,
+                                    WAV2VEC2_LARGE_SER)
+    from float_torch.tools.extract_parts import extract_all
+    from float_torch.tools.readiness_check import hf_folder
+    parts = root / "float"
+    t0 = time.perf_counter()
+    check(extract_all(unified, str(parts)), f"a part missing in {unified}")
+    for part, cfg, labels in (
+            ("wav2vec2_base", WAV2VEC2_BASE, ()),
+            ("emotion_ser", WAV2VEC2_LARGE_SER, EMOTION_LABELS)):
+        raw = dataclasses.asdict(cfg)
+        if labels:
+            raw["id2label"] = {str(i): lbl for i, lbl in enumerate(labels)}
+        (Path(hf_folder(str(parts), part)) / "config.json").write_text(
+            json.dumps(raw))
+    log(f"[store] 6 part files and 2 HF folders cut from the unified file "
+        f"in {time.perf_counter() - t0:.2f} s")
+    return parts
 
 
-def phase_very_advanced(reg: dict, root: Path, unified: str) -> dict:
-    """Part files and HF folders cut from the unified file, the six loaders
+def phase_readiness(unified: str, parts: Path) -> None:
+    """``float_torch.tools.readiness_check`` on the card: the unified file,
+    its part files and its HF folders loaded and held equal, then the
+    parity gate against the fixture recorded from float_tpu, in float32
+    (K1 counted in its decode), two controls that must fail the stages
+    each names, and the recorded latents decoded in bf16 (a reading)."""
+    from float_torch.config import FloatConfig
+    from float_torch.kernels import warp_shared as ws
+    from float_torch.runtime.pipeline import FloatPipeline
+    from float_torch.tools import parity_check as pc
+    from float_torch.tools import readiness_check as rc
+    t_phase = time.perf_counter()
+    acts = pc.load_activations(str(FIXTURE))
+    frames = len(acts["r_d_frames"][0]) + len(acts["r_d_small"][0])
+    try:        # a gate that fails exits, naming itself
+        t0 = time.perf_counter()
+        params, counts = rc.gate_load(unified)
+        rc.gate_layouts(params, str(parts))
+        log(f"[readiness] load gate, three layouts: "
+            f"{time.perf_counter() - t0:.2f} s; parameters per part {counts}")
+        pipe = pc.float32_pipeline(params, "cuda")
+        results, secs, _ = run_path(
+            "parity", lambda: rc.gate_parity(str(FIXTURE), pipe),
+            {"warp_shared": len(LEVELS)}, 1)
+    except SystemExit as exc:
+        check(False, f"readiness: {exc}")
+        return
+    log(f"[readiness] parity gate on the card: {secs:.2f} s, the decode of "
+        f"{frames} recorded frames in one float32 chunk")
+    for r in results:
+        ratio = "" if r.floor is None else \
+            f", {r.floor_ratio:.2f}x the f32-vs-f64 floor {r.floor:.3e}"
+        slack = f" + float16 storage {r.slack:.3e}" if r.slack else ""
+        log(f"[readiness] {r.name}: max|err| {r.max_err:.3e} (atol {r.atol},"
+            f" rtol {r.rtol}{slack}){ratio}: {'PASS' if r.ok else 'FAIL'}")
+        check(r.ok, f"readiness: stage {r.name} max|err| {r.max_err}")
+
+    # controls, each of which must fail the stage it names
+    shuffled = pc.run_parity(pipe, dict(acts,
+                                        noise=acts["noise"][::-1].copy()))
+    real = ws.warp_shared_cuda
+    ws.warp_shared_cuda = lambda f, g: real(f, g.to(torch.bfloat16).float())
+    try:
+        coarse = pc.run_parity(pipe, acts)
+    finally:
+        ws.warp_shared_cuda = real
+    del pipe
+    # the recorded latents through the program's own bf16 decode (the
+    # default compute dtype), from its bf16 encoding of the image
+    bf16 = FloatPipeline(params, FloatConfig(), device="cuda")
+    meta = pc.fixture_meta(acts)
+    img, _wave = pc.bench_inputs(meta["input_seed"], meta["image_size"],
+                                 meta["n_samples"])
+    s_r, _lam, feats, _r_s = bf16.encode_image(img)
+    low = pc.decode_stages(bf16, acts, s_r, feats)
+    del bf16, params, s_r, feats
+    for name, res, want, allowed in (
+            ("the sampler fed the recorded noise in reversed chunk order",
+             shuffled, "r_d", {"r_d"}),
+            ("the frames decoded with their warp grids rounded to bf16",
+             coarse, "frames", {"frames", "frames_small"})):
+        failed = {r.name: r.max_err for r in res if not r.ok}
+        log(f"[readiness] control, {name}: failed {failed}")
+        check(want in failed and set(failed) <= allowed,
+              f"readiness control ({name}): failed {sorted(failed)}, must "
+              f"fail {want} and nothing outside {sorted(allowed)}")
+    # A reading, not a control: the reference's frame budget (2e-2 + 2e-2
+    # of |ref| per element, about 3e-2 to 4e-2 on these frames) admits a
+    # bf16 decode.  What sees the decode's precision is K1 bit-exact
+    # against its plain version (phase 3) and DECODE_TOL (phase 8).  The
+    # check only shows that the bf16 decode ran in bf16.
+    f32_err = max(r.max_err for r in results
+                  if r.name in dict(pc.DECODE_STAGES))
+    for r in low:
+        log(f"[readiness] reading, the recorded latents decoded in bf16: "
+            f"{r.name} max|err| {r.max_err:.3e} "
+            f"({'within' if r.ok else 'outside'} the reference's budget; "
+            f"the float32 gate read {f32_err:.3e})")
+    check(min(r.max_err for r in low) > 10 * f32_err,
+          f"readiness: the bf16 decode reads {[r.max_err for r in low]}, "
+          f"not above 10x the float32 gate's {f32_err}")
+    torch.cuda.empty_cache()
+    log(f"[readiness] phase {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_very_advanced(reg: dict, parts: Path) -> dict:
+    """The six loaders on the part files and HF folders of ``cut_store``
     (published widths inferred), the eight apply nodes with the arguments
     their graph adapters pass: ApplyFloatSynthesis decodes in float32 in
     chunks of its default decode_batch."""
     import inspect
     from float_torch.api import nodes as N
-    from float_torch.config import (EMOTION_LABELS, WAV2VEC2_BASE,
-                                    WAV2VEC2_LARGE_SER)
-    from float_torch.io.download import extract_part
+    from float_torch.config import WAV2VEC2_BASE, WAV2VEC2_LARGE_SER
     from float_torch.runtime.decode import decode_clips_to_host
-    t0 = time.perf_counter()
-    for key, rel in PART_FILES.items():
-        check(extract_part(unified, key, str(root / rel)), f"no {key} part")
-    write_hf_folder(unified, "wav2vec2_base", root / W2V_DIR, WAV2VEC2_BASE)
-    write_hf_folder(unified, "emotion_ser", root / SER_DIR,
-                    WAV2VEC2_LARGE_SER, EMOTION_LABELS)
-    log(f"[tier] very advanced: 4 part files and 2 HF folders cut from the "
-        f"unified file in {time.perf_counter() - t0:.2f} s")
+    from float_torch.tools.extract_parts import DEFAULT_NAMES
+    from float_torch.tools.readiness_check import hf_folder
+    files = {k: str(parts / rel) for k, rel in DEFAULT_NAMES.items()}
     t0 = sync_time()
-    w2v = N.load_wav2vec_model(str(root / W2V_DIR))
-    proj = N.load_audio_projection(str(root / PART_FILES["projection"]))
-    emo = N.load_emotion_model(str(root / SER_DIR))
-    enc = N.load_float_encoder(str(root / PART_FILES["encoder"]))
-    syn = N.load_float_synthesis(str(root / PART_FILES["decoder"]))
-    fmt = N.load_fmt_model(str(root / PART_FILES["fmt"]))
+    w2v = N.load_wav2vec_model(hf_folder(str(parts), "wav2vec2_base"))
+    proj = N.load_audio_projection(files["projection"])
+    emo = N.load_emotion_model(hf_folder(str(parts), "emotion_ser"))
+    enc = N.load_float_encoder(files["encoder"])
+    syn = N.load_float_synthesis(files["decoder"])
+    fmt = N.load_fmt_model(files["fmt"])
     secs = sync_time() - t0
     widths = {
         "wav2vec2": w2v.config == WAV2VEC2_BASE,
@@ -1230,7 +1391,6 @@ def phase_serve(c1: dict, reg: dict, root: Path, unified: str) -> None:
                                        normalize_waveform)
     from float_torch.client import FloatClient, _b64, _jpeg_to_rgb
     from float_torch.io.video import video_backend
-    from float_torch.ops.warp import DISPATCH
     from float_torch.ops.yuv420 import i420_to_rgb_u8
     from float_torch.runtime.decode import (_prepare, decode_chunk,
                                             stream_chunk_count)
@@ -1308,10 +1468,8 @@ def phase_serve(c1: dict, reg: dict, root: Path, unified: str) -> None:
                                      pl.compute_dtype)
             again = decode_chunk(pl.syn_cast, wa_c, feats_c, size,
                                  out_u8=True)
-            coarse = decode_chunk(
-                pl.syn_cast, wa_c, feats_c, size, out_u8=True,
-                warps=DISPATCH._replace(shared=lambda f, g: DISPATCH.shared(
-                    f, g.to(torch.bfloat16).float())))
+            coarse = decode_chunk(pl.syn_cast, wa_c, feats_c, size,
+                                  out_u8=True, warps=bf16_grid_warps())
         for enc in ("raw", "jpeg"):
             got, _, _ = run_path(
                 f"/v1/generate stream {enc}",
@@ -1532,11 +1690,13 @@ def phase_nodes(c1: dict) -> dict:
         check(not root.is_relative_to(REPO),
               f"the temporary directory {root} lies inside the repository")
         unified = phase_checkpoint(c1, root)
+        parts = cut_store(unified, root)
+        phase_readiness(unified, parts)
         torch.cuda.empty_cache()
         reg = phase_regular_graph(c1, root, n_chunks)
         counts["graph_regular.json"] = reg["counts"]
         counts["advanced"], reg["r_d"] = phase_advanced(reg, n_chunks)
-        counts["very_advanced"] = phase_very_advanced(reg, root, unified)
+        counts["very_advanced"] = phase_very_advanced(reg, parts)
         t0 = time.perf_counter()
         phase_serve(c1, reg, root, unified)
         log(f"[serve] phase {time.perf_counter() - t0:.1f} s")

@@ -253,7 +253,13 @@ def load_unified_checkpoint(path: str | os.PathLike, dtype=np.float32) -> dict:
     The emotion tower's HF nesting (``wav2vec2.*`` beside ``classifier.*``
     in Wav2Vec2ForSpeechClassification) is flattened: the tower's keys and
     ``classifier`` side by side."""
-    parts = split_unified(load_safetensors(path))
+    return params_from_parts(split_unified(load_safetensors(path)), dtype)
+
+
+def params_from_parts(parts: Mapping[str, Mapping[str, np.ndarray]],
+                      dtype=np.float32) -> dict:
+    """Per-component flat dicts, keyed as ``split_unified`` keys them ->
+    {component: tree} in the layout of ``models.init.init_pipeline``."""
     out = {
         "encoder": flat_to_pytree(parts["encoder"], dtype),
         "synthesis": flat_to_pytree(parts["synthesis"], dtype),

@@ -47,7 +47,9 @@
 // swizzle (warp_common.cuh) keeps a quarter-warp on 8 bank groups.
 //
 // K3, per-frame maps (gather_kernel<T, true>), keeps the first version:
-// at B=1 a window has no frames to share.
+// at B=1 a window has no frames to share.  Like the TPU kernel it takes
+// any C: where C is not a whole number of 16-byte vectors (an RGB image),
+// each thread gathers one channel (Scalar) instead of one vector.
 //
 // Both round every sum op by op (no FMA contraction) in the plain PyTorch
 // version's order, so they agree with it bit for bit up to the final
@@ -72,15 +74,33 @@ using warp::stage_window;
 using warp::Swizzle;
 using warp::window_bytes;
 
-// The first version: one thread per (pixel, 16-byte vector), the 4 taps
-// gathered from device memory.  kPerFrame (K3): frame b reads map b
-// (feature batch stride H*W*C); otherwise (K1's direct plan) every frame
-// reads map 0.
-template <typename T, bool kPerFrame>
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// One channel per load and store: Vec's interface for a C that is not a
+// whole number of 16-byte vectors.
+template <typename T>
+struct Scalar {
+  static constexpr int N = 1;
+  __device__ __forceinline__ static void load(const T* p, float* v) {
+    v[0] = widen(p[0]);
+  }
+  __device__ __forceinline__ static void store(T* p, const float* v) {
+    p[0] = Vec<T>::from_float(v[0]);
+  }
+};
+
+// The first version: one thread per (pixel, L::N channels: a 16-byte
+// vector, or one channel for Scalar), the 4 taps gathered from device
+// memory.  kPerFrame (K3): frame b reads map b (feature batch stride
+// H*W*C); otherwise (K1's direct plan) every frame reads map 0.
+template <typename T, bool kPerFrame, typename L>
 __global__ void __launch_bounds__(kThreads)
     gather_kernel(const T* __restrict__ feat, const float2* __restrict__ grid,
                   T* __restrict__ out, int H, int W, int C, long long total) {
-  constexpr int V = Vec<T>::N;
+  constexpr int V = L::N;
   const long long t =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= total) return;
@@ -120,12 +140,12 @@ __global__ void __launch_bounds__(kThreads)
           (static_cast<long long>(yy) * W + static_cast<long long>(xx)) * C +
           c0;
       float v[V];
-      Vec<T>::load(map + src, v);
+      L::load(map + src, v);
 #pragma unroll
       for (int i = 0; i < V; ++i) acc[i] = __fadd_rn(acc[i], __fmul_rn(w, v[i]));
     }
   }
-  Vec<T>::store(out + pix * C + c0, acc);
+  L::store(out + pix * C + c0, acc);
 }
 
 // K1: one map shared by the B frames, staged per tile (see the top).
@@ -208,19 +228,36 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, bool kPerFrame>
-cudaError_t launch_gather(const void* feat, const void* grid, void* out,
-                          int B, int H, int W, int C, cudaStream_t stream) {
-  const long long total =
-      static_cast<long long>(B) * H * W * (C / Vec<T>::N);
+template <typename T, bool kPerFrame, typename L>
+cudaError_t launch_gather_as(const void* feat, const void* grid, void* out,
+                             int B, int H, int W, int C,
+                             cudaStream_t stream) {
+  const long long total = static_cast<long long>(B) * H * W * (C / L::N);
   if (total == 0) return cudaSuccess;
   const long long blocks = (total + kThreads - 1) / kThreads;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  gather_kernel<T, kPerFrame><<<static_cast<unsigned int>(blocks), kThreads,
-                                0, stream>>>(
+  gather_kernel<T, kPerFrame, L><<<static_cast<unsigned int>(blocks),
+                                   kThreads, 0, stream>>>(
       static_cast<const T*>(feat), static_cast<const float2*>(grid),
       static_cast<T*>(out), H, W, C, total);
   return cudaGetLastError();
+}
+
+// 16-byte vectors where C fills them; otherwise one channel per thread,
+// which only the per-frame entry (K3) takes.
+template <typename T, bool kPerFrame>
+cudaError_t launch_gather(const void* feat, const void* grid, void* out,
+                          int B, int H, int W, int C, cudaStream_t stream) {
+  if (C % Vec<T>::N == 0) {
+    return launch_gather_as<T, kPerFrame, Vec<T>>(feat, grid, out, B, H, W,
+                                                  C, stream);
+  }
+  if constexpr (kPerFrame) {
+    return launch_gather_as<T, true, Scalar<T>>(feat, grid, out, B, H, W, C,
+                                                stream);
+  } else {
+    return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, int VPT>
@@ -273,8 +310,9 @@ cudaError_t launch_staged(const void* feat, const void* grid, void* out,
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = f32.  The caller checks shapes, contiguity, 16-byte
-// alignment and C % (16 / sizeof(T)) == 0.  Each returns a cudaError_t.
+// dtype: 0 = bf16, 1 = f32.  The caller checks shapes, contiguity and,
+// where C % (16 / sizeof(T)) == 0, 16-byte alignment; warp_shared_launch
+// takes only such C.  Each returns a cudaError_t.
 // feat (1, H, W, C): one map shared by the B frames, staged by the plan
 // (tile_h, tile_w, cslice, frames, halo, vpt) of warp_plan.plan_shared, or
 // gathered directly for tile_h = 0 (the direct plan);
@@ -299,7 +337,7 @@ extern "C" int warp_shared_launch(const void* feat, const void* grid,
   return static_cast<int>(err);
 }
 
-// feat (B, H, W, C): frame b's own map.
+// feat (B, H, W, C): frame b's own map, any C.
 extern "C" int warp_per_frame_launch(const void* feat, const void* grid,
                                      void* out, int B, int H, int W, int C,
                                      int dtype, int device, void* stream) {

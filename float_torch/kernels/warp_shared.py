@@ -38,10 +38,12 @@ def _lib() -> ctypes.CDLL:
 
 
 def check_warp_inputs(name: str, feat: torch.Tensor, grid: torch.Tensor,
-                      feat_batch: int) -> None:
+                      feat_batch: int, any_channels: bool = False) -> None:
     """Raise unless feat (feat_batch, H, W, C) bf16|f32 and grid
-    (B, H, W, 2) f32 are contiguous on one CUDA device, feat 16-byte and
-    grid 8-byte aligned, and C a whole number of 16-byte vectors."""
+    (B, H, W, 2) f32 are contiguous on one CUDA device, grid 8-byte
+    aligned, and C a whole number of 16-byte vectors with feat 16-byte
+    aligned; ``any_channels`` (K3) takes any other C too, which the kernel
+    reads one channel at a time."""
     if not (feat.is_cuda and grid.is_cuda and feat.device == grid.device):
         raise ValueError(f"{name} needs feat and grid on one CUDA device, "
                          f"got {feat.device} and {grid.device}")
@@ -56,12 +58,12 @@ def check_warp_inputs(name: str, feat: torch.Tensor, grid: torch.Tensor,
         raise ValueError(f"grid must be (B, {h}, {w}, 2), got "
                          f"{tuple(grid.shape)}")
     vec = 16 // feat.element_size()
-    if c % vec:
+    if c % vec and not any_channels:
         raise ValueError(f"C={c} must be a multiple of {vec} for "
                          f"{feat.dtype}")
     if not (feat.is_contiguous() and grid.is_contiguous()):
         raise ValueError("feat and grid must be contiguous (NHWC)")
-    if feat.data_ptr() % 16 or grid.data_ptr() % 8:
+    if (c % vec == 0 and feat.data_ptr() % 16) or grid.data_ptr() % 8:
         raise ValueError("feat must be 16-byte and grid 8-byte aligned")
     if max(grid.shape[0], h, w, c) > _INT_MAX:
         raise ValueError("dimension too large")
@@ -105,7 +107,9 @@ def warp_shared_cuda(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
 
 def warp_per_frame_cuda(feat: torch.Tensor,
                         grid: torch.Tensor) -> torch.Tensor:
-    """K3: feat (B, H, W, C), frame b warped by grid[b] (B, H, W, 2)
-    -> (B, H, W, C) in feat's dtype.  Raises on anything else."""
-    check_warp_inputs("warp_per_frame", feat, grid, grid.shape[0])
+    """K3: feat (B, H, W, C), any C, frame b warped by grid[b]
+    (B, H, W, 2) -> (B, H, W, C) in feat's dtype.  Raises on anything
+    else."""
+    check_warp_inputs("warp_per_frame", feat, grid, grid.shape[0],
+                      any_channels=True)
     return _launch("warp_per_frame", feat, grid, None)

@@ -51,6 +51,12 @@ def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1,
     return F.conv2d(x, k, stride=down, groups=c)
 
 
+def blur(x: torch.Tensor, kernel: torch.Tensor,
+         pad: tuple[int, int]) -> torch.Tensor:
+    """FIR blur, no resampling (reference Blur module, encoder.py:60-74)."""
+    return upfirdn2d(x, kernel, up=1, down=1, pad=pad)
+
+
 def upsample2x(x: torch.Tensor, blur_kernel=(1, 3, 3, 1)) -> torch.Tensor:
     """2x upsample with FIR smoothing (reference Upsample)."""
     factor = 2

@@ -13,6 +13,9 @@ each a plain PyTorch version beside a dispatcher:
                      ToRGB weight (3, C) before any rounding (K2,
                      ``kernels/csrc/warp_rgb.cu``).
 
+``grid_sample_bilinear`` is the public NCHW op of ``float_tpu.ops`` at any
+output size; it reaches K3 where K3 takes the shape.
+
 Each dispatcher takes the plain version for CPU tensors and the
 hand-written kernel for CUDA tensors; a kernel raises on inputs it does
 not take.  None returns the TPU kernels' overflow flags: all are exact for
@@ -44,7 +47,7 @@ def identity_grid(size: int, device=None) -> torch.Tensor:
 
 
 def _warp_f32(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """feat (1 or B, H, W, C), grid (B, H, W, 2) -> (B, H, W, C) f32 sums
+    """feat (1 or B, H, W, C), grid (B, Ho, Wo, 2) -> (B, Ho, Wo, C) f32 sums
     of the four taps, each product and sum rounded in f32 in this order
     (the CUDA kernels round the same way)."""
     bf, h, w, c = feat.shape
@@ -149,6 +152,52 @@ def warp_rgb(feat: torch.Tensor, grid: torch.Tensor,
         return warp_rgb_ref(feat, grid, wk)
     from ..kernels.warp_rgb import warp_rgb_cuda
     return warp_rgb_cuda(feat, grid, wk)
+
+
+def _check_sample(feat: torch.Tensor, grid: torch.Tensor) -> None:
+    if feat.ndim != 4 or grid.ndim != 4 or grid.shape[-1] != 2 \
+            or grid.shape[0] != feat.shape[0]:
+        raise ValueError(f"feat must be (B, C, H, W) and grid (B, Ho, Wo, "
+                         f"2), got {tuple(feat.shape)} and "
+                         f"{tuple(grid.shape)}")
+
+
+def grid_sample_bilinear_ref(feat: torch.Tensor,
+                             grid: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``grid_sample_bilinear``: feat (B, C, H, W) sampled
+    at grid (B, Ho, Wo, 2) -> (B, C, Ho, Wo) in feat's dtype, the four taps
+    summed in f32 as ``warp_per_frame_ref`` sums them."""
+    _check_sample(feat, grid)
+    out = _warp_f32(feat.permute(0, 2, 3, 1), grid)
+    return out.to(feat.dtype).permute(0, 3, 1, 2)
+
+
+def _k3_supports(feat: torch.Tensor, grid: torch.Tensor) -> bool:
+    """K3 takes a bf16 or f32 map of any C sampled at its own resolution
+    (Ho, Wo == H, W): every shape the TPU kernel's ``supports`` takes."""
+    _b, _c, h, w = feat.shape
+    return (feat.dtype in (torch.bfloat16, torch.float32)
+            and tuple(grid.shape[1:3]) == (h, w))
+
+
+def grid_sample_bilinear(feat: torch.Tensor,
+                         grid: torch.Tensor) -> torch.Tensor:
+    """Sample ``feat`` (B, C, H, W) at ``grid`` (B, Ho, Wo, 2), normalised
+    xy in [-1, 1] -> (B, C, Ho, Wo): ``F.grid_sample`` with bilinear taps,
+    ``padding_mode='zeros'``, ``align_corners=False`` (twin of
+    ``float_tpu.ops.grid_sample_bilinear``).
+
+    The reference's dispatch rule: its Pallas kernel where ``supports``
+    holds (a bf16 map sampled at its own resolution), the plain gather
+    otherwise.  Here a bf16 or f32 CUDA map of any C sampled at its own
+    resolution goes through K3 (``warp_per_frame``); another output size
+    or dtype, where the reference runs no kernel either, and every CPU
+    tensor, runs ``grid_sample_bilinear_ref``."""
+    _check_sample(feat, grid)
+    if _on_cpu(feat, grid) or not _k3_supports(feat, grid):
+        return grid_sample_bilinear_ref(feat, grid)
+    nhwc = feat.permute(0, 2, 3, 1).contiguous()
+    return warp_per_frame(nhwc, grid.float().contiguous()).permute(0, 3, 1, 2)
 
 
 class Warps(NamedTuple):

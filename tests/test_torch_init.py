@@ -84,7 +84,12 @@ def test_port_never_imports_jax():
             "float_torch.runtime.workflow, float_torch.io.checkpoint, "
             "float_torch.serve, float_torch.client, float_torch.cli, "
             "float_torch.utils.flops, float_torch.utils.inspect, "
-            "float_torch.utils.logging, float_torch.utils.profiling; "
+            "float_torch.utils.logging, float_torch.utils.profiling, "
+            "float_torch.tools.parity_check, "
+            "float_torch.tools.readiness_check, "
+            "float_torch.tools.extract_parts, "
+            "float_torch.tools.save_combined, "
+            "float_torch.tools.check_versions; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'float_tpu')); "
             "assert not bad, bad")
