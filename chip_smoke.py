@@ -16,7 +16,8 @@ wrappers.  Phases:
 2. build the hand-written kernels;
 3. K1 (``warp_shared``) against its plain PyTorch version on the card, bit
    for bit, at every level of a 512² decode and every frame batch the
-   driven paths give it (bf16: 24, 12, 8, 4, 1; float32, the Very
+   driven paths give it (bf16: 24, 12, 8, 4, 1 and the mesh's shares 6,
+   3, 2; float32, the Very
    Advanced tier's decode and its reference: 24, 12, 8, 4), on every
    grid kind of ``make_grid``: flows inside and far beyond its staged
    window, grids that leave the image, sparse far pixels in every tile,
@@ -90,8 +91,23 @@ wrappers.  Phases:
    reader (aborted, the lock freed, the next request served);
 14. the CLI as subprocesses on the card: ``inspect`` of the unified file,
    ``generate`` and ``generate --stream`` (mp4s of 250 frames, wall time,
-   first-frame latency).  The temporary directory is then gone, and no
-   checkpoint file is left in the repository.
+   first-frame latency);
+15. the mesh mode (run after phase 8): config 1's ``generate``,
+   ``generate_stream(first_chunk=4)`` and ragged ``generate_batch``
+   through ``FloatPipeline(mesh=)``, (a) over four ranks of card 0 at 2x2
+   and 1x4 (``make_mesh(devices=[cuda:0] * 4)``), always, and (b) over
+   every card when there are two or more: r_d against one device's within
+   ``MESH_RD_TOL``, frames within ``DECODE_TOL`` with the out-of-order
+   control, K1 (K3 for one-frame shares) counted per shard;
+16-18. as subprocesses on phase 9's unified file (``FLOAT_CKPT``), each
+   with its wall time: ``python -m float_torch.bench --reps 10`` and
+   ``--stream`` (finite values, 0 < mfu <= 1, ``vs_baseline`` null);
+   ``float_torch.tools.configs_bench`` (the five BASELINE configs, every
+   row finite); ``float_torch.tools.serve_load_bench`` with the base lane
+   (2 x 2 requests of 4 s clips: no error), ``--overload`` (503s seen, the
+   stalled reader aborted, the probe served) and ``--soak-sec 20`` (no
+   error).  The temporary directory is then gone, and no checkpoint file
+   is left in the repository.
 
 A failed check is printed and the run goes on, so one run reports every
 phase; the script then exits 1 before printing its result lines.
@@ -134,6 +150,10 @@ LEVELS = ((8, 512), (16, 512), (32, 512), (64, 256), (128, 128), (256, 64),
 # 8-frame last chunks of 10 s and 6 s clips, the stream's 4-frame first
 # chunk; and one frame.
 K1_BATCHES = (24, 12, 8, 4, 1)
+# K1's frame batches of the mesh paths (phase 15): a chunk's frames split
+# over 4 ranks, 24 -> 6, 12 -> 3, 8 -> 2 (a share of 1 goes to K3); held to
+# the plain version, not timed.
+K1_MESH_BATCHES = (6, 3, 2)
 # Sampling grids every shared-map kernel is held to its plain version on
 # (make_grid): the staged kernels' windows, their device-memory fallback
 # and coordinates that must never become an index.
@@ -446,7 +466,8 @@ def phase_kernels(gen: torch.Generator, parent=None) -> dict:
 
     max_err = 0.0
     for size, c in LEVELS:
-        for dtype, batches in ((torch.bfloat16, K1_BATCHES),
+        for dtype, batches in ((torch.bfloat16,
+                                K1_BATCHES + K1_MESH_BATCHES),
                                (torch.float32, (24, 12, 8, 4))):
             feat = rand_feat(gen, 1, size, c, dtype)
             for b in batches:
@@ -966,6 +987,7 @@ def phase_paths(c1: dict) -> dict:
     check_frames("generate_batch clip 0", outs[0], frames,
                  DECODE_TOL + U8_STEP)
     check_frames("generate_batch clip 1", outs[1], ref2, DECODE_TOL + U8_STEP)
+    c1["batch"] = (imgs, waves, outs)
     return counts
 
 
@@ -1422,9 +1444,12 @@ def phase_serve(c1: dict, reg: dict, root: Path, unified: str) -> None:
         client = FloatClient(url)
         health = client.health()
         log(f"[serve] /health {health}")
-        check(health["status"] == "ok" and health["device"] == "cuda"
+        # the pipeline's device carries its card's index; no mesh
+        check(health["status"] == "ok"
+              and health["device"] == f"cuda:{torch.cuda.current_device()}"
               and health["device_name"] == torch.cuda.get_device_name(0)
-              and health["weights"] == "real", f"/health {health}")
+              and health["weights"] == "real" and health["mesh"] is None,
+              f"/health {health}")
 
         got, secs, _ = run_path(
             "/v1/generate", lambda: run_client("generate", url, root),
@@ -1679,6 +1704,191 @@ def phase_cli(root: Path, unified: str, decode_batch: int) -> None:
         check(n == 250 and "generated 250 frames" in out
               and bool(first) == bool(extra), f"cli generate {extra}: {out}")
 
+# r_d of a mesh pipeline against the single-device pipeline: the
+# tolerance of float_tpu's own tests/test_parallel.py (the model axis
+# sums each row-parallel layer in another order).
+MESH_RD_TOL = 2e-4
+
+
+def share_launches(chunks, ranks: int, n_lv: int) -> tuple:
+    """(launches by kernel, launches at K4's shapes) of decode chunks of
+    ``chunks`` frames, each split over ``ranks`` shares as
+    ``decode.FrameParallel`` splits them: a share of more than one frame
+    warps its shared levels with K1, a share of one frame with K3."""
+    k1 = k3 = k4 = 0
+    for size in chunks:
+        for share in torch.arange(size).tensor_split(ranks):
+            n = share.numel()
+            k1 += n_lv * (n > 1)
+            k3 += n_lv * (n == 1)
+            k4 += n > 1 and n % 4 == 0     # its 512² C=32 level
+    return {"warp_shared": k1, "warp_per_frame": k3}, k4
+
+
+def run_mesh(name: str, mesh, c1: dict) -> None:
+    """Config 1's generate, generate_stream(first_chunk=4) and ragged
+    generate_batch through a pipeline over ``mesh``, against the
+    single-device pipeline's."""
+    from float_torch.runtime.decode import chunk_sizes, first_chunk_size
+    from float_torch.runtime.pipeline import FloatPipeline, audio_num_frames
+    pipe, frames = c1["pipe"], c1["frames"]
+    cfg = pipe.cfg
+    t0 = sync_time()
+    mp = FloatPipeline(pipe.params, cfg, pipe.w2v_cfg, pipe.ser_cfg,
+                       mesh=mesh)
+    model = mesh.shape["model"]
+    shards = mp.params["fmt"]["blocks"]["0"]["attn"].tp_shards
+    log(f"[mesh] {name}: {mesh.shape} over {[str(d) for d in mesh.flat]}, "
+        f"built in {sync_time() - t0:.2f} s; FMT attention in "
+        f"{len(shards or [1])} head groups")
+    check(model == 1 or len(shards) == model,
+          f"mesh {name}: FMT attention not split over the model axis")
+
+    t_frames = frames.shape[0]
+    fb, n_lv = cfg.decode_batch, len(LEVELS)
+    with torch.inference_mode():
+        s_r, _lam, feats, r_s = pipe.encode_image(c1["img"])
+        wa = mp.encode_audio(c1["wave"], t_frames)
+        we = mp.emotion_latent(c1["wave"], "none")
+        r_d = mp.sample(r_s, wa, we, seed=15)
+    err = (r_d - c1["r_d"]).abs().max().item()
+    log(f"[mesh] {name}: r_d (tensor-parallel wav2vec2 towers and FMT) vs "
+        f"one device max|diff| {err:.3e} (tol {MESH_RD_TOL:g})")
+    check(err <= MESH_RD_TOL, f"mesh {name}: r_d {err} > {MESH_RD_TOL}")
+
+    want, k4 = share_launches(chunk_sizes(t_frames, fb), mesh.size, n_lv)
+    out, secs, _ = run_path(f"mesh {name} generate", lambda: mp.generate(
+        c1["img"], c1["wave"], emotion="none", seed=15), want, k4)
+    log(f"[mesh] {name}: generate {secs:.3f} s, {t_frames / secs:.2f} "
+        f"frames/s")
+    check_frames(f"mesh {name} generate", out, frames, DECODE_TOL)
+    out_of_order(f"mesh {name} generate", out, frames, DECODE_TOL)
+
+    first = first_chunk_size(4, fb)
+    chunks = [first] + [fb] * math.ceil((t_frames - first) / fb)
+    want, k4 = share_launches(chunks, mesh.size, n_lv)
+
+    def stream():
+        return np.concatenate([part for _s, part in mp.generate_stream(
+            c1["img"], c1["wave"], emotion="none", seed=15, first_chunk=4,
+            wire="u8")])
+
+    got, secs, _ = run_path(f"mesh {name} generate_stream", stream, want, k4)
+    check_frames(f"mesh {name} generate_stream u8",
+                 got.astype(np.float32) / 255.0, frames, DECODE_TOL + U8_STEP)
+
+    imgs, waves, ref = c1["batch"]
+    lens = [w.shape[-1] for w in waves]
+    chunks = [n for w in lens for n in chunk_sizes(
+        audio_num_frames(w, cfg), fb)]
+    want, k4 = share_launches(chunks, mesh.size, n_lv)
+    outs, secs, _ = run_path(f"mesh {name} generate_batch",
+                             lambda: mp.generate_batch(imgs, waves),
+                             want, k4)
+    for i, (a, b) in enumerate(zip(outs, ref)):
+        check_frames(f"mesh {name} generate_batch clip {i}", a,
+                     torch.from_numpy(b).cuda(), DECODE_TOL + U8_STEP,
+                     "one device's generate_batch")
+    check(torch.cuda.current_device() == 0,
+          f"mesh {name}: current device {torch.cuda.current_device()}")
+    del mp
+    torch.cuda.empty_cache()
+
+
+def phase_mesh(c1: dict) -> None:
+    """15. The mesh mode: (a) four ranks on card 0 at 2x2 and 1x4, always;
+    (b) every card, when there are two or more."""
+    from float_torch.parallel import make_mesh
+    card0 = [torch.device("cuda", 0)] * 4
+    run_mesh("2x2 on cuda:0", make_mesh(devices=card0, data=2, model=2), c1)
+    run_mesh("1x4 on cuda:0", make_mesh(devices=card0, data=1, model=4), c1)
+    n = torch.cuda.device_count()
+    if n >= 2 and c1["pipe"].cfg.decode_batch % n == 0:
+        run_mesh(f"{n} cards", make_mesh(), c1)
+    else:
+        log(f"[mesh] (b) not run: {n} card(s); (a) ran the same paths over "
+            f"four ranks of one card")
+
+
+def run_tool(tag: str, args: list, root: Path, unified: str,
+             timeout: float) -> tuple:
+    """``python -m <args>`` on config 1's unified file (``FLOAT_CKPT``,
+    which spares each process the synthetic init); (JSON lines of its
+    output, its output, wall seconds), with its exit code checked."""
+    env = dict(os.environ, PYTHONPATH=str(REPO), FLOAT_CKPT=unified)
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=root,
+                              env=env, capture_output=True, text=True,
+                              timeout=timeout)
+    except subprocess.TimeoutExpired:
+        check(False, f"{tag}: still running after {timeout} s")
+        return [], "", time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"{tag} exited {proc.returncode}: "
+          f"{proc.stderr[-3000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines()
+             if x.startswith("{")]
+    return lines, proc.stdout, secs
+
+
+def finite_pos(x) -> bool:
+    return isinstance(x, (int, float)) and math.isfinite(x) and x > 0
+
+
+def phase_bench(root: Path, unified: str) -> None:
+    """16. ``python -m float_torch.bench --reps 10`` and ``--stream``."""
+    for extra in ((), ("--stream",)):
+        lines, _out, secs = run_tool(
+            f"bench {' '.join(extra)}",
+            ["float_torch.bench", "--reps", "10", *extra], root, unified,
+            600)
+        line = lines[-1] if lines else {}
+        log(f"[bench] {' '.join(extra) or 'clips'}: {secs:.1f} s wall; "
+            f"{json.dumps(line)}")
+        check(finite_pos(line.get("value")) and "vs_baseline" in line
+              and line["vs_baseline"] is None
+              and (extra or 0 < line.get("mfu", -1) <= 1),
+              f"bench {extra}: {line}")
+
+
+def phase_configs(root: Path, unified: str) -> None:
+    """17. ``python -m float_torch.tools.configs_bench``: the five
+    BASELINE configs, each in its own process."""
+    rows, out, secs = run_tool("configs_bench",
+                               ["float_torch.tools.configs_bench", "--reps",
+                                "2"], root, unified, 1200)
+    table = out[out.find("| config"):].rstrip()
+    log(f"[configs] {secs:.1f} s wall; rows {json.dumps(rows)}\n{table}")
+    check(sorted(r.get("config") for r in rows) == [1, 2, 3, 4, 5]
+          and all("error" not in r and finite_pos(r.get("fps"))
+                  and finite_pos(r.get("seconds")) for r in rows),
+          f"configs_bench rows {rows}")
+
+
+def phase_serve_load(root: Path, unified: str) -> None:
+    """18. ``python -m float_torch.tools.serve_load_bench``: the base
+    lane, overload and a soak, against ``float_torch.serve``."""
+    lines, out, secs = run_tool(
+        "serve_load_bench", ["float_torch.tools.serve_load_bench", "--reqs",
+                             "2", "--clip-sec", "4", "--overload",
+                             "--soak-sec", "20", "--stall-sec", "5"],
+        root, unified, 600)
+    res = lines[-1] if lines else {}
+    log(f"[serve load] {secs:.1f} s wall; {json.dumps(res)}\n"
+        + out[out.find("| quantity"):].rstrip())
+    over, soak = res.get("overload") or {}, res.get("soak") or {}
+    check(res.get("errors") == [] and res.get("requests") == 4,
+          f"serve load base lane: {res.get('errors')}")
+    check(over.get("rejected_503", 0) >= 1
+          and over.get("stream_aborts_delta", 0) >= 1
+          and over.get("post_overload_probe_ok") is True
+          and not over.get("other_errors"),
+          f"serve load overload: {over}")
+    check(soak.get("error_count") == 0
+          and sum((soak.get("completed") or {}).values()) > 0,
+          f"serve load soak: {soak}")
+
 
 def phase_nodes(c1: dict) -> dict:
     """Phases 9-14 in one temporary directory outside the repository,
@@ -1703,6 +1913,11 @@ def phase_nodes(c1: dict) -> dict:
         t0 = time.perf_counter()
         phase_cli(root, unified, c1["pipe"].cfg.decode_batch)
         log(f"[cli] phase {time.perf_counter() - t0:.1f} s")
+        for tag, phase in (("bench", phase_bench), ("configs", phase_configs),
+                           ("serve load", phase_serve_load)):
+            t0 = time.perf_counter()
+            phase(root, unified)
+            log(f"[{tag}] phase {time.perf_counter() - t0:.1f} s")
     left = sorted(str(p) for p in REPO.rglob("*.safetensors"))
     check(not Path(tmp).exists() and not left,
           f"checkpoint files left behind: {tmp} exists "
@@ -1726,6 +1941,7 @@ def main() -> int:
 
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}"
         f", CUDA {torch.version.cuda}")
+    import importlib
     import importlib.util
     log("[device] host packages the port does without: " + ", ".join(
         f"{m} {'present' if importlib.util.find_spec(m) else 'absent'}"
@@ -1750,7 +1966,14 @@ def main() -> int:
     phase_tiny()
     c1 = phase_config1()
     counts = phase_paths(c1)
+    t0 = time.perf_counter()
+    phase_mesh(c1)
+    log(f"[mesh] phase {time.perf_counter() - t0:.1f} s")
     counts.update(phase_nodes(c1))
+    for name in ("float_torch.parallel", "float_torch.bench",
+                 "float_torch.tools.configs_bench",
+                 "float_torch.tools.serve_load_bench"):
+        importlib.import_module(name)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "float_tpu"))
     check(not leaked, f"imported {leaked}")

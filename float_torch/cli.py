@@ -6,6 +6,8 @@
     python -m float_torch.cli workflow configs/default.json
     python -m float_torch.cli graph example_workflows/graph_regular.json
     python -m float_torch.cli serve --checkpoint ... [--decode-batch 24] [--warm]
+        [--mesh data=D,model=M]
+    python -m float_torch.cli bench [--reps 10] [--stream]
 
 Models run on the CUDA card unless ``--device cpu`` is given.
 """
@@ -173,6 +175,14 @@ def cmd_inspect(args):
         print("  (arch inference failed:", exc, ")")
 
 
+def cmd_bench(args):
+    """``float_torch.bench`` in this process (config 1 on the card; exit
+    1 without one)."""
+    from . import bench
+    argv = ["--reps", str(args.reps)] + (["--stream"] if args.stream else [])
+    raise SystemExit(bench.main(argv))
+
+
 def cmd_workflow(args):
     """Run a JSON workflow config (the 5 BASELINE configs are expressible)."""
     from .runtime.workflow import run_workflow
@@ -286,6 +296,13 @@ def main(argv=None):
     i.add_argument("checkpoint")
     i.set_defaults(func=cmd_inspect)
 
+    b = sub.add_parser("bench", help="config 1's frames/s (or, with "
+                                     "--stream, its time to the first "
+                                     "chunk) on the card: one JSON line")
+    b.add_argument("--reps", type=int, default=10)
+    b.add_argument("--stream", action="store_true")
+    b.set_defaults(func=cmd_bench)
+
     w = sub.add_parser("workflow", help="run a JSON workflow config")
     w.add_argument("config")
     w.add_argument("--output", default="out")
@@ -318,8 +335,9 @@ def main(argv=None):
     s.add_argument("--adv-options", help="JSON ADV_FLOAT_DICT overrides")
     s.add_argument("--allow-synthetic", action="store_true")
     s.add_argument("--mesh", metavar="data=D,model=M",
-                   help="serve over several cards (not ported yet: "
-                        "raises)")
+                   help="serve over every card as a (data, model) mesh: "
+                        "clips split over data, the FMT and wav2vec2 "
+                        "over model, each decode chunk's frames over all")
     s.add_argument("--warm", action="store_true",
                    help="run the serving paths once BEFORE binding the "
                         "port (kernel builds, cuDNN's algorithm choice), "

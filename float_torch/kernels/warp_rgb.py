@@ -50,11 +50,14 @@ def warp_rgb_cuda(feat: torch.Tensor, grid: torch.Tensor,
     plan = plan_rgb(b, h, w, c, feat.element_size())
     lib = _lib()
     stream = torch.cuda.current_stream(feat.device).cuda_stream
-    err = lib.warp_rgb_launch(feat.data_ptr(), grid.data_ptr(),
-                              wk.data_ptr(), out.data_ptr(), b, h, w, c,
-                              plan.tile_h, plan.tile_w, plan.frames,
-                              plan.halo, DTYPE_CODE[feat.dtype],
-                              feat.device.index, stream)
+    # the caller's current device is restored after the launcher's own
+    # cudaSetDevice (see warp_shared._launch)
+    with torch.cuda.device(feat.device):
+        err = lib.warp_rgb_launch(feat.data_ptr(), grid.data_ptr(),
+                                  wk.data_ptr(), out.data_ptr(), b, h, w, c,
+                                  plan.tile_h, plan.tile_w, plan.frames,
+                                  plan.halo, DTYPE_CODE[feat.dtype],
+                                  feat.device.index, stream)
     if err:
         msg = lib.warp_rgb_error_string(err).decode()
         raise RuntimeError(f"{NAME} launch failed: CUDA error {err} ({msg})")

@@ -81,10 +81,13 @@ def _launch(name: str, feat: torch.Tensor, grid: torch.Tensor,
     stream = torch.cuda.current_stream(feat.device).cuda_stream
     args = (feat.data_ptr(), grid.data_ptr(), out.data_ptr(), b, h, w, c)
     tail = (DTYPE_CODE[feat.dtype], feat.device.index, stream)
-    if plan is None:
-        err = lib.warp_per_frame_launch(*args, *tail)
-    else:
-        err = lib.warp_shared_launch(*args, *plan, *tail)
+    # the launcher makes feat's device current; the guard gives the caller
+    # back its own current device afterwards
+    with torch.cuda.device(feat.device):
+        if plan is None:
+            err = lib.warp_per_frame_launch(*args, *tail)
+        else:
+            err = lib.warp_shared_launch(*args, *plan, *tail)
     if err:
         msg = lib.warp_shared_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: CUDA error {err} ({msg})")

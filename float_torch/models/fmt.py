@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..parallel.sharding import row_parallel
+
 
 @functools.lru_cache(maxsize=None)
 def _sinusoid_table_np(n_position: int, d_hid: int) -> np.ndarray:
@@ -76,18 +78,34 @@ def _modulate(x, shift, scale):
     return x * (1 + scale) + shift
 
 
-def _attention(p, x, bias, num_heads: int):
-    b, n, c = x.shape
-    hd = c // num_heads
-    qkv = _linear(p["qkv"], x).reshape(b, n, 3, num_heads, hd)
+def _heads(p_qkv, x, bias, heads: int):
+    """Attention of the ``heads`` heads whose q, k and v rows ``p_qkv``
+    holds -> (B, N, heads * hd), the input of ``proj``."""
+    b, n, _ = x.shape
+    hd = p_qkv["weight"].shape[0] // (3 * heads)
+    qkv = _linear(p_qkv, x).reshape(b, n, 3, heads, hd)
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (B, H, N, hd)
     logits = (q @ k.transpose(-1, -2)).float() / math.sqrt(hd) + bias
     att = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = (att @ v).transpose(1, 2).reshape(b, n, c)
-    return _linear(p["proj"], out)
+    return (att @ v).transpose(1, 2).reshape(b, n, heads * hd)
+
+
+def _attention(p, x, bias, num_heads: int):
+    shards = getattr(p, "tp_shards", None)
+    if shards:                 # one head group a model rank (parallel/)
+        heads = num_heads // len(shards)
+        return row_parallel(shards, x, lambda s, xs: F.linear(
+            _heads(s["qkv"], xs, bias.to(xs.device), heads),
+            s["proj"]["weight"].to(xs.dtype)), p["proj"]["bias"])
+    return _linear(p["proj"], _heads(p["qkv"], x, bias, num_heads))
 
 
 def _mlp(p, x):
+    shards = getattr(p, "tp_shards", None)
+    if shards:                 # a slice of the hidden width a model rank
+        return row_parallel(shards, x, lambda s, xs: F.linear(
+            F.gelu(_linear(s["fc1"], xs), approximate="tanh"),
+            s["fc2"]["weight"].to(xs.dtype)), p["fc2"]["bias"])
     return _linear(p["fc2"], F.gelu(_linear(p["fc1"], x), approximate="tanh"))
 
 

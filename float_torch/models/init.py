@@ -244,7 +244,11 @@ class ParamTree(nn.Module):
     ``tree[key]`` returns a child tree or a parameter, so model functions
     index it exactly as they index a plain nested dict of tensors.
     Parameters do not require grad: the pipeline only serves.
+    ``tp_shards``: a layer's tensor-parallel slices, one dict a model rank
+    (``parallel.sharding``); None for a layer held whole.
     """
+
+    tp_shards = None
 
     def __init__(self, tree: dict):
         super().__init__()

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from ..config import Wav2Vec2Config
 from ..ops import linear_interpolate_time
+from ..parallel.sharding import row_parallel
 
 
 def _linear(p, x):
@@ -66,23 +67,43 @@ def _pos_conv_embed(params, x, cfg: Wav2Vec2Config):
     return F.gelu(h).transpose(1, 2)
 
 
-def _attention(p, x, num_heads: int, bias=None):
-    b, t, c = x.shape
-    hd = c // num_heads
+def _heads(p, x, heads: int, bias=None):
+    """Attention of the ``heads`` heads whose rows ``p``'s q/k/v_proj hold
+    -> (B, T, heads * hd), the input of ``out_proj``."""
+    b, t, _ = x.shape
+    hd = p["q_proj"]["weight"].shape[0] // heads
     q = _linear(p["q_proj"], x) * (hd ** -0.5)
     k = _linear(p["k_proj"], x)
     v = _linear(p["v_proj"], x)
-    q, k, v = (a.reshape(b, t, num_heads, hd).transpose(1, 2)
+    q, k, v = (a.reshape(b, t, heads, hd).transpose(1, 2)
                for a in (q, k, v))
     logits = (q @ k.transpose(-1, -2)).float()
     if bias is not None:
         logits = logits + bias
     att = torch.softmax(logits, dim=-1).to(x.dtype)
-    out = (att @ v).transpose(1, 2).reshape(b, t, c)
-    return _linear(p["out_proj"], out)
+    return (att @ v).transpose(1, 2).reshape(b, t, heads * hd)
+
+
+def _attention(p, x, num_heads: int, bias=None):
+    shards = getattr(p, "tp_shards", None)
+    if shards:                 # one head group a model rank (parallel/)
+        heads = num_heads // len(shards)
+
+        def part(s, xs):
+            bs = None if bias is None else bias.to(xs.device)
+            return F.linear(_heads(s, xs, heads, bs),
+                            s["out_proj"]["weight"].to(xs.dtype))
+        return row_parallel(shards, x, part, p["out_proj"]["bias"])
+    return _linear(p["out_proj"], _heads(p, x, num_heads, bias))
 
 
 def _feed_forward(p, x):
+    shards = getattr(p, "tp_shards", None)
+    if shards:                 # a slice of the intermediate width a rank
+        return row_parallel(shards, x, lambda s, xs: F.linear(
+            F.gelu(_linear(s["intermediate_dense"], xs)),
+            s["output_dense"]["weight"].to(xs.dtype)),
+            p["output_dense"]["bias"])
     return _linear(p["output_dense"], F.gelu(_linear(p["intermediate_dense"], x)))
 
 

@@ -8,6 +8,8 @@ program, the on-device decode, and the host-delivery loops.
     decode_latents_stream  frames yielded chunk by chunk as latent pieces
                            arrive (the streaming mode)
     decode_clips_to_host   several clips in one dispatch stream
+    FrameParallel          a chunk's frames split over a mesh's devices
+                           (``chunk_fn=`` of each loop)
 
 The TPU decode's D/path ratchets, optimistic and fixup programs, steady
 probe and pessimist switch exist only for the TPU kernels' static tap
@@ -21,6 +23,7 @@ the chunk it hands out.
 """
 from __future__ import annotations
 
+import copy
 import math
 
 import numpy as np
@@ -81,6 +84,56 @@ def decode_chunk(synthesis_params, wa_chunk, feats, size: int, out_u8=False,
     return img
 
 
+class FrameParallel:
+    """``decode_chunk`` with each chunk's frames split over ``devices`` (a
+    mesh's devices, row-major): the counterpart of float_tpu's
+    ``make_sharded_chunk_fn``.  Every frame is independent, so device i
+    decodes its share with its own copy of the synthesis weights and skip
+    maps (K1, and K2 with ``rgb_in_kernel``, launched per share on that
+    device), and the frames are gathered in frame order on the device of
+    the latents.  Shares differ by at most one frame; a device with no
+    frame launches nothing.  One host thread launches the shares in
+    turn, so the kernels' once-per-device set-up is never raced.
+
+    The copies are made at first use and kept: the weights for as long as
+    this object lives, the skip maps until another clip's maps arrive."""
+
+    def __init__(self, devices):
+        self.devices = [torch.device(d) for d in devices]
+        self._params = {}                  # device -> synthesis copy
+        self._feats = (None, {})           # (source maps, device -> copies)
+
+    def _params_on(self, params, device):
+        if next(params.parameters()).device == device:
+            return params
+        if device not in self._params:
+            self._params[device] = copy.deepcopy(params).to(device)
+        return self._params[device]
+
+    def _feats_on(self, feats, device):
+        if feats[0].device == device:
+            return feats
+        src, copies = self._feats
+        if src is not feats:
+            self._feats = (feats, {})
+            copies = self._feats[1]
+        if device not in copies:
+            copies[device] = [f.to(device) for f in feats]
+        return copies[device]
+
+    def __call__(self, synthesis_params, wa_chunk, feats, size, **kw):
+        home = wa_chunk.device
+        outs = []
+        for device, rows in zip(self.devices,
+                                wa_chunk.tensor_split(len(self.devices))):
+            if rows.shape[0]:
+                outs.append(decode_chunk(
+                    self._params_on(synthesis_params, device),
+                    rows.to(device), self._feats_on(feats, device), size,
+                    **kw).to(home))
+        return torch.cat(outs)
+
+
 def _prepare(s_r, feats, r_d, t_pad: int, compute_dtype):
     """wa = s_r + r_d in f32, cast to ``compute_dtype`` and edge-padded to
     ``t_pad`` rows with its last latent; the skip maps cast once."""
@@ -95,23 +148,25 @@ def _prepare(s_r, feats, r_d, t_pad: int, compute_dtype):
 def decode_latents(synthesis_params, s_r, feats, r_d, *, size: int,
                    decode_batch: int = 8, compute_dtype=torch.float32,
                    rgb_in_kernel: bool = RGB_IN_KERNEL,
-                   frame_callback=None, blur_kernel=(1, 3, 3, 1)):
+                   frame_callback=None, blur_kernel=(1, 3, 3, 1),
+                   chunk_fn=None):
     """Decode T frames: s_r (1, dim_w), feats (7 maps, each (1, C, H, W)),
     r_d (T, dim_w) -> (T, size, size, 3) f32 in [0, 1] on the device.
 
     The last chunk pads by repeating the last latent and its extra frames
     are dropped.  ``frame_callback(i, n)`` fires after chunk i is
-    dispatched."""
+    dispatched.  ``chunk_fn`` replaces ``decode_chunk`` (e.g. a
+    :class:`FrameParallel`), as in the other decode loops."""
     t_frames = r_d.shape[0]
     sizes = chunk_sizes(t_frames, decode_batch)
     wa, feats_c = _prepare(s_r, feats, r_d, sum(sizes), compute_dtype)
     frames = torch.empty((t_frames, size, size, 3), dtype=torch.float32,
                          device=wa.device)
+    fn = chunk_fn or decode_chunk
     lo = 0
     for ci, sz in enumerate(sizes):
-        chunk = decode_chunk(synthesis_params, wa[lo:lo + sz], feats_c, size,
-                             rgb_in_kernel=rgb_in_kernel,
-                             blur_kernel=blur_kernel)
+        chunk = fn(synthesis_params, wa[lo:lo + sz], feats_c, size,
+                   rgb_in_kernel=rgb_in_kernel, blur_kernel=blur_kernel)
         n = min(sz, t_frames - lo)
         frames[lo:lo + n] = chunk[:n]
         lo += sz
@@ -161,7 +216,8 @@ def _store(dst: np.ndarray, host: np.ndarray, uint8_transfer: bool) -> None:
 def decode_latents_to_host(synthesis_params, s_r, feats, r_d, *, size: int,
                            decode_batch: int = 8, compute_dtype=torch.float32,
                            uint8_transfer: bool = True, frame_callback=None,
-                           blur_kernel=(1, 3, 3, 1)) -> np.ndarray:
+                           blur_kernel=(1, 3, 3, 1),
+                           chunk_fn=None) -> np.ndarray:
     """Decode T frames into host memory chunk by chunk -> (T, S, S, 3)
     float32 numpy in [0, 1]: ``decode_clips_to_host`` of one clip.
 
@@ -174,7 +230,7 @@ def decode_latents_to_host(synthesis_params, s_r, feats, r_d, *, size: int,
         synthesis_params, [(s_r, feats, r_d)], size=size,
         decode_batch=decode_batch, compute_dtype=compute_dtype,
         uint8_transfer=uint8_transfer, frame_callback=frame_callback,
-        blur_kernel=blur_kernel)[0]
+        blur_kernel=blur_kernel, chunk_fn=chunk_fn)[0]
 
 
 @torch.inference_mode()
@@ -183,7 +239,7 @@ def decode_latents_stream(synthesis_params, s_r, feats, latent_iter, *,
                           compute_dtype=torch.float32,
                           uint8_transfer: bool = True, frame_callback=None,
                           first_chunk: int = 0, emit: str = "f32",
-                          blur_kernel=(1, 3, 3, 1)):
+                          blur_kernel=(1, 3, 3, 1), chunk_fn=None):
     """Incremental decode: consume (k, dim_w) r_d pieces from
     ``latent_iter`` and yield (start_frame, frames) as soon as each decode
     chunk's bytes reach the host.
@@ -212,12 +268,13 @@ def decode_latents_stream(synthesis_params, s_r, feats, latent_iter, *,
     feats_c = [f.to(compute_dtype).contiguous(memory_format=CL)
                for f in feats]
     stream = _copy_stream(s32.device)
+    fn = chunk_fn or decode_chunk
     n_done = 0
 
     def dispatch(rows, start, n_valid):
         wa_c = (s32 + rows.float()).to(compute_dtype)
-        dev = decode_chunk(synthesis_params, wa_c, feats_c, size,
-                           out_u8=out_u8, blur_kernel=blur_kernel)
+        dev = fn(synthesis_params, wa_c, feats_c, size, out_u8=out_u8,
+                 blur_kernel=blur_kernel)
         return start, n_valid, _HostCopy(dev, stream)
 
     def take(item):
@@ -267,7 +324,7 @@ def decode_latents_stream(synthesis_params, s_r, feats, latent_iter, *,
 def decode_clips_to_host(synthesis_params, clips, *, size: int,
                          decode_batch: int = 8, compute_dtype=torch.float32,
                          uint8_transfer: bool = True, frame_callback=None,
-                         blur_kernel=(1, 3, 3, 1)) -> list:
+                         blur_kernel=(1, 3, 3, 1), chunk_fn=None) -> list:
     """Decode several clips in one dispatch stream: ``clips`` = list of
     (s_r (1, dim_w), feats, r_d (T_i, dim_w)) -> list of (T_i, S, S, 3)
     float32 numpy arrays in [0, 1].
@@ -285,6 +342,7 @@ def decode_clips_to_host(synthesis_params, clips, *, size: int,
         metas.append((t_frames, chunk_sizes(t_frames, fb)))
         outs.append(np.empty((t_frames, size, size, 3), np.float32))
     total = sum(len(sizes) for _t, sizes in metas)
+    fn = chunk_fn or decode_chunk
     stream = None
     n_done = 0
 
@@ -305,9 +363,8 @@ def decode_clips_to_host(synthesis_params, clips, *, size: int,
         if stream is None:
             stream = _copy_stream(wa.device)
         for ci, sz in enumerate(sizes):
-            dev = decode_chunk(synthesis_params, wa[ci * fb:ci * fb + sz],
-                               feats_c, size, out_u8=uint8_transfer,
-                               blur_kernel=blur_kernel)
+            dev = fn(synthesis_params, wa[ci * fb:ci * fb + sz], feats_c,
+                     size, out_u8=uint8_transfer, blur_kernel=blur_kernel)
             copy = _HostCopy(dev, stream)
             if pending is not None:
                 drain(*pending)

@@ -13,6 +13,12 @@ host-delivery entry points on one torch device (twin of
     generate_batch  : several clips (ragged audio too) -> numpy clips
     warmup          : the serving paths run once before the first request
 
+``mesh=`` (``parallel.make_mesh``) runs the pipeline over several devices
+from this one process: the wav2vec2 towers and the FMT split over a mesh
+row (``parallel.sharding``), every decode chunk's frames split over all
+devices (``decode.FrameParallel``), and ``generate_batch``'s clips split
+over the data axis.
+
 The pipeline runs on ``device`` ("cuda" unless the caller passes another);
 without a CUDA device, ``device="cpu"`` must be given.  Weights load into
 :class:`~float_torch.models.init.ParamTree` modules with one
@@ -29,6 +35,7 @@ from __future__ import annotations
 import copy
 import math
 import time
+from functools import partial
 from typing import NamedTuple, Optional
 
 import torch
@@ -38,10 +45,13 @@ from ..config import (EMOTION_LABELS, WAV2VEC2_BASE, WAV2VEC2_LARGE_SER,
 from ..models.audio_encoder import encode_audio as _encode_audio
 from ..models.encoder import encode_image as _encode_image
 from ..models.fmt import infer_cfg_mode
-from ..models.init import empty_pipeline, init_pipeline, params_to_state_dict
+from ..models.init import (ParamTree, empty_pipeline, init_pipeline,
+                           params_to_state_dict)
 from ..models.synthesis import direction
 from ..models.wav2vec2 import predict_emotion as _predict_emotion
-from .decode import (decode_clips_to_host, decode_latents,
+from ..parallel.mesh import batch_split, gather
+from ..parallel.sharding import shard_fmt, shard_wav2vec2
+from .decode import (FrameParallel, decode_clips_to_host, decode_latents,
                      decode_latents_stream, decode_latents_to_host,
                      stream_chunk_count)
 from .sampling import sample_motion_chunks, sample_motion_latents
@@ -59,6 +69,18 @@ def one_hot_emotion(label: str, dim_e: int = 7, device=None) -> torch.Tensor:
     return we
 
 
+def _nest(flat: dict) -> dict:
+    """{"a.b.c": leaf} -> {"a": {"b": {"c": leaf}}}."""
+    out: dict = {}
+    for key, leaf in flat.items():
+        *path, last = key.split(".")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[last] = leaf
+    return out
+
+
 def _stage_cb(progress, stage: str):
     """Adapt a ``progress(stage, i, n)`` callback to the decode loops'
     (i, n) frame_callback; None passes through."""
@@ -73,11 +95,16 @@ def _report(progress, stage: str, i: int = 1, n: int = 1):
 
 
 def _checked_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device with its index, so the
+    pipeline's tensors stay on that card whatever device is current when
+    it runs later."""
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the pipeline runs on a CUDA device unless told "
                            "otherwise, and none is available; pass "
                            "device='cpu' to run on the CPU")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     return device
 
 
@@ -99,14 +126,28 @@ class FloatPipeline:
     params: {'encoder', 'synthesis', 'audio_encoder': {'wav2vec2',
     'audio_projection'}, 'emotion', 'fmt'} with array leaves — the layout
     of ``models.init.init_pipeline`` and of ``float_tpu``'s params.
+    A :class:`ParamTree` (another pipeline's ``params``) is taken too.
     ``device``: "cuda" by default; "cpu" runs the plain PyTorch versions
     of the kernels and must be asked for.
+
+    ``mesh`` (a ``parallel.Mesh``): the mesh mode.  The pipeline lives on
+    the mesh's first device (``device`` is then not read); every data row
+    holds the weights on its first device, its wav2vec2 towers and FMT
+    split over its model ranks; each decode chunk's frames are split over
+    all the mesh's devices.  ``cfg.decode_batch`` must divide by the mesh
+    size, as in float_tpu.
     """
 
-    def __init__(self, params: dict, cfg: FloatConfig = FloatConfig(),
+    def __init__(self, params, cfg: FloatConfig = FloatConfig(),
                  w2v_cfg: Wav2Vec2Config = WAV2VEC2_BASE,
                  ser_cfg: Wav2Vec2Config = WAV2VEC2_LARGE_SER,
-                 device="cuda"):
+                 device="cuda", mesh=None):
+        self.mesh = mesh
+        if mesh is not None:
+            if cfg.decode_batch % mesh.size:
+                raise ValueError(f"decode_batch {cfg.decode_batch} not "
+                                 f"divisible by mesh size {mesh.size}")
+            device = mesh.primary
         self.device = _checked_device(device)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -115,10 +156,58 @@ class FloatPipeline:
         self.ser_cfg = ser_cfg
         self.compute_dtype = getattr(torch, cfg.compute_dtype)
         self.sampler_dtype = getattr(torch, cfg.sampler_dtype)
-        self.params = empty_pipeline(cfg, w2v_cfg, ser_cfg, self.device)
-        self.params.load_state_dict(params_to_state_dict(params), strict=True)
+        if isinstance(params, torch.nn.Module):
+            # its shapes are the skeleton's: a loaded model's widths may
+            # differ from the config's defaults
+            state = params.state_dict()
+            self._skeleton = lambda device: ParamTree(_nest({
+                k: torch.empty(v.shape, device=device)
+                for k, v in state.items()}))
+        else:
+            state = params_to_state_dict(params)
+            self._skeleton = partial(empty_pipeline, cfg, w2v_cfg, ser_cfg)
+        self.params = self._load(state, self.device)
         self.syn_cast = copy.deepcopy(self.params["synthesis"]).to(
             self.compute_dtype)
+        self._rows = [self.params]         # the weights of each data row
+        self._chunk_fn = None
+        if mesh is not None:
+            replicas = {}
+            for row in mesh.devices:
+                key = tuple(row)
+                if key not in replicas:
+                    tree = (self._load(state, row[0]) if replicas
+                            else self.params)
+                    self._shard(tree, row)
+                    replicas[key] = tree
+            self._rows = [replicas[tuple(row)] for row in mesh.devices]
+            self._chunk_fn = FrameParallel(mesh.flat)
+
+    def _load(self, state: dict, device):
+        tree = self._skeleton(device)
+        tree.load_state_dict(state, strict=True)
+        return tree
+
+    def _shard(self, tree, row) -> None:
+        """The tensor-parallel split of ``tree``'s towers and FMT over the
+        devices of one mesh row."""
+        shard_wav2vec2(tree["audio_encoder"]["wav2vec2"], row,
+                       self.w2v_cfg.num_attention_heads)
+        shard_wav2vec2(tree["emotion"], row, self.ser_cfg.num_attention_heads)
+        shard_fmt(tree["fmt"], row, self.cfg.num_heads)
+
+    def _over_data(self, fn, x):
+        """``fn(weights, x)`` with x's batch split over the mesh's data
+        rows (each share on its row's first device, with that row's
+        weights), the results gathered in batch order on the pipeline's
+        device; the whole batch on row 0 without a mesh or when the batch
+        does not divide (correct, just not parallel)."""
+        d = len(self._rows)
+        if d == 1 or x.shape[0] % d:
+            return fn(self.params, x)
+        return gather([fn(w, xs) for w, xs in
+                       zip(self._rows, batch_split(self.mesh, x))],
+                      self.device)
 
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
@@ -130,9 +219,12 @@ class FloatPipeline:
     @torch.inference_mode()
     def encode_image(self, img):
         """img (B, 3, S, S) in [-1, 1] -> (s_r, r_s_lambda, feats, r_s)."""
-        s_r, lam, feats = _encode_image(self.params["encoder"],
-                                        self._tensor(img), self.cfg.input_size)
-        return s_r, lam, feats, direction(self.params["synthesis"]["direction"],
+        return self._encode_with(self.params, self._tensor(img))
+
+    def _encode_with(self, weights, img):
+        s_r, lam, feats = _encode_image(weights["encoder"], img,
+                                        self.cfg.input_size)
+        return s_r, lam, feats, direction(weights["synthesis"]["direction"],
                                           lam)
 
     def prepare_source(self, img) -> SourceLatents:
@@ -162,18 +254,20 @@ class FloatPipeline:
         """wave (B, N) -> softmax scores (B, E).  Clips longer than
         ``cfg.ser_max_sec`` are predicted over fixed windows and the scores
         averaged, weighted by window length (a sub-0.1 s tail is dropped)."""
-        wave = self._tensor(wave)
+        return self._emotion_with(self.params, self._tensor(wave))
+
+    def _emotion_with(self, params, wave) -> torch.Tensor:
         cfg = self.cfg
         max_n = int(cfg.ser_max_sec * cfg.sampling_rate)
         n = wave.shape[-1]
         if n <= max_n:
-            return _predict_emotion(self.params["emotion"], wave, self.ser_cfg)
+            return _predict_emotion(params["emotion"], wave, self.ser_cfg)
         scores, weights = [], []
         for lo in range(0, n, max_n):
             w = wave[:, lo:lo + max_n]
             if w.shape[-1] < 1600:
                 break
-            scores.append(_predict_emotion(self.params["emotion"], w,
+            scores.append(_predict_emotion(params["emotion"], w,
                                            self.ser_cfg))
             weights.append(w.shape[-1])
         tot = float(sum(weights))
@@ -232,7 +326,7 @@ class FloatPipeline:
     def _decode_args(self) -> dict:
         return dict(size=self.cfg.input_size,
                     decode_batch=self.cfg.decode_batch,
-                    compute_dtype=self.compute_dtype)
+                    compute_dtype=self.compute_dtype, chunk_fn=self._chunk_fn)
 
     @torch.inference_mode()
     def decode(self, s_r, feats, r_d, progress=None) -> torch.Tensor:
@@ -395,7 +489,11 @@ class FloatPipeline:
         seeds (default cfg.seed + i, the reference's per-item seed + i,
         nodes.py:189-211).  Returns a list of B (T_i, S, S, 3) float32
         numpy arrays in [0, 1] (uint8 on the wire), each equal to the
-        clip's own ``generate`` up to that quantisation."""
+        clip's own ``generate`` up to that quantisation.
+
+        Under a mesh the image encode splits the clip batch over the data
+        axis, and each audio length group splits when its size divides it
+        (a group that does not runs on row 0)."""
         cfg = self.cfg
         imgs = self._tensor(imgs)
         bsz = imgs.shape[0]
@@ -408,7 +506,7 @@ class FloatPipeline:
         if seeds is None:
             seeds = [cfg.seed + i for i in range(bsz)]
 
-        s_r, _lam, feats, r_s = self.encode_image(imgs)
+        s_r, _lam, feats, r_s = self._over_data(self._encode_with, imgs)
         _report(progress, "encode_image")
 
         # the audio stages run once per length group, batched (every op is
@@ -420,8 +518,14 @@ class FloatPipeline:
         we_i = [None] * bsz
         for n, idxs in sorted(groups.items()):
             wv = torch.stack([waves[i] for i in idxs])
-            wa_g = self.encode_audio(wv, audio_num_frames(n, cfg))
-            we_g = self.emotion_latent(wv, emotion)
+            t_n = audio_num_frames(n, cfg)
+            wa_g = self._over_data(lambda w, x: _encode_audio(
+                w["audio_encoder"], x, t_n, cfg, self.w2v_cfg), wv)
+            if emotion and emotion.lower() in EMOTION_LABELS:
+                we_g = self.emotion_latent(wv, emotion)
+            else:
+                we_g = self._over_data(self._emotion_with,
+                                       wv)[:, None, :]
             for k, i in enumerate(idxs):
                 wa_i[i] = wa_g[k:k + 1]
                 # a named emotion's one-hot has batch 1
@@ -446,10 +550,12 @@ class FloatPipeline:
 def build_synthetic_pipeline(cfg: FloatConfig = FloatConfig(),
                              w2v_cfg: Wav2Vec2Config = WAV2VEC2_BASE,
                              ser_cfg: Wav2Vec2Config = WAV2VEC2_LARGE_SER,
-                             seed: int = 0, device="cuda") -> FloatPipeline:
+                             seed: int = 0, device="cuda",
+                             mesh=None) -> FloatPipeline:
     """Pipeline with seeded random weights, bit-identical to float_tpu's
     ``build_synthetic_pipeline`` at the same configs and seed; on the CUDA
-    device unless ``device`` says otherwise."""
-    device = _checked_device(device)
+    device unless ``device`` says otherwise, or over ``mesh``."""
+    if mesh is None:
+        device = _checked_device(device)
     return FloatPipeline(init_pipeline(cfg, w2v_cfg, ser_cfg, seed), cfg,
-                         w2v_cfg, ser_cfg, device=device)
+                         w2v_cfg, ser_cfg, device=device, mesh=mesh)

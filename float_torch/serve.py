@@ -11,7 +11,8 @@ standard-library (http.server) daemon over the same pipeline:
 Endpoints (JSON in, JSON or binary out):
 
 - ``GET  /health`` -> {"status", "device", "device_name", "weights",
-  "busy"}: the pipeline's torch device and the card's name
+  "busy", "mesh"}: the pipeline's torch device, the card's name and the
+  mesh's {"data": D, "model": M} (null without a mesh)
 - ``GET  /metrics`` -> cumulative {"requests", "errors", "frames",
   "busy_seconds", "frames_per_busy_second"}
 - ``POST /v1/generate`` body
@@ -361,7 +362,8 @@ class FloatServer:
                 "device": str(dev),
                 "device_name": name,
                 "weights": self.pipe.weights,
-                "busy": self.lock.locked()}
+                "busy": self.lock.locked(),
+                "mesh": mesh_shape(self.pipe.pipeline)}
 
     def metrics(self) -> Dict[str, Any]:
         """Serving counters: cumulative requests / errors / generated
@@ -730,23 +732,56 @@ def make_server(pipe, host: str = "127.0.0.1", port: int = 8472,
     return ThreadingHTTPServer((host, port), handler)
 
 
+def _mesh(spec: str, device: str):
+    """The mesh of a ``--mesh`` spec on ``device``'s kind of device."""
+    from .parallel.mesh import make_mesh, parse_mesh_spec
+    axes = parse_mesh_spec(spec)
+    if torch.device(device).type != "cpu":
+        return make_mesh(**axes)
+    if len(axes) != 2:
+        raise ValueError(f"a CPU mesh needs both axes, data=D,model=M; got "
+                         f"{spec!r}")
+    return make_mesh(devices=["cpu"] * (axes["data"] * axes["model"]),
+                     **axes)
+
+
+def mesh_shape(pipeline) -> Optional[Dict[str, int]]:
+    """{"data": D, "model": M} of a pipeline in mesh mode, else None."""
+    mesh = getattr(pipeline, "mesh", None)
+    return None if mesh is None else dict(mesh.shape)
+
+
 def load_pipe(checkpoint: str, allow_synthetic: bool = False,
               models_root: str = "models",
               advanced_float_options: Optional[dict] = None,
               device: str = "cuda", decode_batch: Optional[int] = None,
-              **load_kw):
+              mesh_spec: Optional[str] = None, **load_kw):
     """Load the FloatPipe ``serve`` serves: ``load_float_models`` onto
     ``device`` (the card unless "cpu" is asked for).  ``decode_batch``
-    (frames per synthesis decode chunk) replaces the config's; ``load_kw``
-    passes through (``cfg``, ``w2v_cfg``, ``ser_cfg``)."""
+    (frames per synthesis decode chunk) replaces the config's.
+    ``mesh_spec`` ("data=D,model=M") rebuilds the pipeline over a mesh
+    (``parallel.make_mesh``), as float_tpu's ``serve`` does: every CUDA
+    device, either axis optional; with ``device="cpu"``, D x M ranks on
+    the CPU, both axes given.  The mesh is built, or refused, before any
+    weight is read, and its shape is logged.  ``load_kw`` passes through
+    (``cfg``, ``w2v_cfg``, ``ser_cfg``)."""
     from .api.nodes import load_float_models
+    mesh = None if not mesh_spec else _mesh(mesh_spec, device)
     if decode_batch is not None:
         load_kw["cfg"] = (load_kw.get("cfg") or FloatConfig()).replace(
             decode_batch=decode_batch)
-    return load_float_models(checkpoint, target_device=device,
+    pipe = load_float_models(checkpoint, target_device=device,
                              models_root=models_root,
                              advanced_float_options=advanced_float_options,
                              allow_synthetic=allow_synthetic, **load_kw)
+    if mesh is not None:
+        from .runtime.pipeline import FloatPipeline
+        pl = pipe.pipeline
+        pipe.pipeline = FloatPipeline(pl.params, pl.cfg, pl.w2v_cfg,
+                                      pl.ser_cfg, mesh=mesh)
+        logger.info("mesh mode: %s over %s", mesh.shape,
+                    [str(d) for d in mesh.flat])
+    return pipe
 
 
 def serve(checkpoint: str, host: str = "127.0.0.1", port: int = 8472,
@@ -761,16 +796,16 @@ def serve(checkpoint: str, host: str = "127.0.0.1", port: int = 8472,
     the kernel libraries are built and cuDNN has picked its algorithms, so
     the first request pays neither.  ``device``: "cuda" unless "cpu" is
     asked for.  ``decode_batch``: frames per decode chunk (the config's 8
-    unless given).  ``mesh_spec`` (serving over several cards) is not ported:
-    it raises NotImplementedError."""
-    if mesh_spec:
-        raise NotImplementedError(
-            "mesh serving (mesh_spec) is not ported to float_torch yet "
-            "(ROADMAP Queue 1 item 9(g), multi-GPU decode and clips)")
+    unless given).  ``mesh_spec`` ("data=2,model=4", either axis
+    optional) builds the pipeline over a mesh of every CUDA device:
+    generate_batch splits clips over ``data``, the FMT and wav2vec2 towers
+    split over ``model``, every decode chunk's frames over all devices
+    (``parallel/``)."""
     pipe = load_pipe(checkpoint, allow_synthetic=allow_synthetic,
                      models_root=models_root,
                      advanced_float_options=advanced_float_options,
-                     device=device, decode_batch=decode_batch)
+                     device=device, decode_batch=decode_batch,
+                     mesh_spec=mesh_spec)
     if warm:
         logger.info("warming the serving paths before binding the port...")
         dt = pipe.pipeline.warmup()
@@ -778,7 +813,8 @@ def serve(checkpoint: str, host: str = "127.0.0.1", port: int = 8472,
         print(f"warmup done in {dt:.1f}s")
     httpd = make_server(pipe, host, port)
     logger.info("serving on http://%s:%d (weights=%s, device=%s, "
-                "decode_batch=%d)", host, httpd.server_address[1],
-                pipe.weights, pipe.pipeline.device, pipe.cfg.decode_batch)
+                "decode_batch=%d, mesh=%s)", host, httpd.server_address[1],
+                pipe.weights, pipe.pipeline.device, pipe.cfg.decode_batch,
+                mesh_shape(pipe.pipeline))
     print(f"float_torch serving on http://{host}:{httpd.server_address[1]}")
     httpd.serve_forever()

@@ -186,9 +186,10 @@ def test_help_and_refusals(capsys):
     out = capsys.readouterr().out
     for cmd in ("generate", "inspect", "workflow", "graph", "serve"):
         assert cmd in out
-    with pytest.raises(SystemExit):
-        cli.main(["bench"])              # runs float_tpu's bench.py: not here
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(SystemExit) as info:
+        cli.main(["bench"])              # no card: no measurement, exit 1
+    assert info.value.code == 1
+    with pytest.raises(ValueError, match="both axes"):
         cli.main(["serve", "--mesh", "data=2", "--device", "cpu"])
     proc = subprocess.run([sys.executable, "-m", "float_torch.cli", "--help"],
                           cwd=REPO, capture_output=True, text=True,

@@ -89,7 +89,10 @@ def test_port_never_imports_jax():
             "float_torch.tools.readiness_check, "
             "float_torch.tools.extract_parts, "
             "float_torch.tools.save_combined, "
-            "float_torch.tools.check_versions; "
+            "float_torch.tools.check_versions, float_torch.parallel, "
+            "float_torch.parallel.mesh, float_torch.parallel.sharding, "
+            "float_torch.bench, float_torch.tools.configs_bench, "
+            "float_torch.tools.serve_load_bench; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'float_tpu')); "
             "assert not bad, bad")

@@ -304,7 +304,7 @@ def case_health(fpipe, server, payload, arrays):
     with urllib.request.urlopen(server + "/health", timeout=30) as r:
         body = json.loads(r.read())
     assert body == {"status": "ok", "device": "cpu", "device_name": "cpu",
-                    "weights": "synthetic", "busy": False}
+                    "weights": "synthetic", "busy": False, "mesh": None}
 
 
 def case_generate_mp4(fpipe, server, payload, arrays):
@@ -570,10 +570,15 @@ def case_client_roundtrip(fpipe, server, payload, arrays):
 
 
 def case_serve_loads_on_cuda_unless_asked(fpipe, server, payload, arrays):
-    """serve() refuses a mesh before loading anything, and loads onto the
-    card unless the CPU is asked for."""
-    with pytest.raises(NotImplementedError, match="9\\(g\\)"):
-        t_serve.serve("no-such-file.safetensors", mesh_spec="data=2")
+    """serve() builds its mesh over the CUDA devices before loading
+    anything (refused where there is none), and loads onto the card unless
+    the CPU is asked for; on the CPU, load_pipe(mesh_spec=) rebuilds the
+    loaded pipeline over D x M CPU ranks, and refuses a spec without both
+    axes."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(torch.cuda, "is_available", lambda: False)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            t_serve.serve("no-such-file.safetensors", mesh_spec="data=2")
     seen = []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr("float_torch.api.nodes.load_float_models",
@@ -581,6 +586,20 @@ def case_serve_loads_on_cuda_unless_asked(fpipe, server, payload, arrays):
         t_serve.load_pipe("x.safetensors")
         t_serve.load_pipe("x.safetensors", device="cpu")
     assert seen == ["cuda", "cpu"]
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr("float_torch.api.nodes.load_float_models",
+                   lambda *a, **kw: FloatPipe(fpipe.pipeline, fpipe.cfg,
+                                              weights="synthetic"))
+        with pytest.raises(ValueError, match="both axes"):
+            t_serve.load_pipe("x.safetensors", device="cpu",
+                              mesh_spec="data=2")
+        got = t_serve.load_pipe("x.safetensors", device="cpu",
+                                mesh_spec="data=2,model=2")
+    assert t_serve.mesh_shape(got.pipeline) == {"data": 2, "model": 2}
+    assert got.pipeline.mesh.flat == [torch.device("cpu")] * 4
+    assert fpipe.pipeline.mesh is None
+    assert t_serve.FloatServer(got).health()["mesh"] == {"data": 2,
+                                                         "model": 2}
 
 
 def case_decode_batch_reaches_the_config(fpipe, server, payload, arrays):

@@ -253,11 +253,12 @@ def test_generate_batch_equal_length_list_is_one_batch(pipe, inputs,
                                                        monkeypatch):
     """A ragged list whose lengths match encodes its audio once, as one
     batch, and still matches serial; default seeds are cfg.seed + i."""
+    from float_torch.runtime import pipeline as tpl
     img, wave = inputs
     calls = []
-    real = pipe.encode_audio
-    monkeypatch.setattr(pipe, "encode_audio",
-                        lambda w, n: calls.append(w.shape) or real(w, n))
+    real = tpl._encode_audio           # every audio encode of the pipeline
+    monkeypatch.setattr(tpl, "_encode_audio", lambda p, w, *a: calls.append(
+        tuple(w.shape)) or real(p, w, *a))
     outs = pipe.generate_batch(np.concatenate([img, img]),
                                [wave[0], wave[0] * 0.5], emotion="happy")
     assert calls == [(2, 16000)]
