@@ -38,6 +38,20 @@ wrappers.  Phases:
    (the last two on every grid kind), each against its plain version,
    then each kernel's row of the kernel table: ms, plain ms, library ms
    and bound at config-1 shapes;
+7b. the experiments: K5 (``warp_window``, the windowed selection-matmul
+   warp on the tensor cores) against its plain version at 128²x128,
+   256²x64 and 512²x32, 16 frames, on the smooth, far, out and mixed
+   grids (overflow pixels bit for bit, every other element within one
+   bf16 ulp; the public ``warp_bilinear_windowed``'s overflow pixels
+   against ``grid_sample_bilinear``; the MMAs it issued, counted by the
+   kernel, fewer than the dense count), K6 (``fma_dtype``) in its three variants at 64 and 1024
+   steps (f32 accumulators bit for bit, bf16 within one ulp); each
+   experiment's path (one public call per level or variant) with its
+   launch counts; K5 timed beside K3, F.grid_sample, its plain version
+   and its bound, with the MMA FLOPs issued and dense; K6 beside its
+   plain chain and its bound; both entry points (``python -m
+   float_torch.experiments.warp_selection_matmul``, ``...fma_dtype_bench``)
+   as subprocesses;
 8. config 1's other paths, each with its launch counts: a decode with the
    ToRGB in the last warp (K2), a one-frame-chunk decode (K3), decode to
    host, ``generate_stream`` on the u8 and 4:2:0 wires, and
@@ -158,6 +172,13 @@ K1_MESH_BATCHES = (6, 3, 2)
 # (make_grid): the staged kernels' windows, their device-memory fallback
 # and coordinates that must never become an index.
 GRID_KINDS = ("smooth", "far", "out", "mixed", "nonfinite")
+# The experiments' kernels (phase 7b): K5 at the TPU experiment's levels
+# and frame chunk on every finite grid kind of make_grid (all but "smooth"
+# give overflow pixels), K6 at the probe's chain lengths.
+K5_LEVELS = ((128, 128), (256, 64), (512, 32))
+K5_BATCH = 16
+K5_KINDS = ("smooth", "far", "out", "mixed")
+K6_STEPS = (64, 1024)
 # the kernel libraries a parent checkout (``--parent``) builds
 KERNEL_SOURCES = ("warp_shared", "warp_rgb")
 CUDA = "float_torch/kernels/csrc/"
@@ -176,6 +197,12 @@ ROWS = {   # kernel-table rows: the name the wrapper counts launches under
     "K4": {"name": "warp_shared", "route": "cuda",
            "source": CUDA + "warp_shared.cu",
            "replaces": "float_tpu/ops/pallas/shift_warp_packed.py:35"},
+    "K5": {"name": "warp_window", "route": "cuda",
+           "source": CUDA + "warp_window_mma.cu",
+           "replaces": "experiments/pallas_warp_selection_matmul.py:36"},
+    "K6": {"name": "fma_dtype", "route": "cuda",
+           "source": CUDA + "fma_dtype.cu",
+           "replaces": "experiments/vpu_dtype_bench.py:19"},
 }
 NEW_KERNELS = ("warp_per_frame", "warp_rgb")
 # Tolerances.  bf16 kernel vs plain: four f32 products summed in another
@@ -641,6 +668,169 @@ def phase_kernel_variants(gen: torch.Generator, parent=None) -> dict:
         f"{k3.ms:.4f} ms{vs_parent(k3.ms, k3.parent_ms)}, F.grid_sample "
         f"{k3.library_ms:.4f} ms, bound {sum(k3.bound.values()):.5f} ms")
     return {k: dict(rows[k].json(), max_abs_err=errs[k]) for k in rows}
+
+
+def phase_experiments(gen: torch.Generator) -> dict:
+    """Phase 7b.  K5 against its plain version at the TPU experiment's
+    levels and chunk on the finite grid kinds (overflow pixels bit for
+    bit, every other element within one bf16 ulp; the public function's
+    overflow pixels against grid_sample_bilinear; the MMAs it issued
+    fewer than the dense count), K6's three variants against their plain
+    chains at both chain lengths (f32 accumulators bit for bit, bf16
+    within one ulp); then each experiment's path with its launch counts,
+    each kernel's times beside its bound, and both entry points as
+    subprocesses."""
+    from float_torch.experiments import fma_dtype_bench as fb
+    from float_torch.experiments import warp_selection_matmul as ws
+    from float_torch.kernels.warp_window import MMA_FLOPS, warp_window_cuda
+    from float_torch.ops.warp import grid_sample_bilinear, warp_per_frame
+
+    b = K5_BATCH
+    errs = {"K5": 0.0, "K6": 0.0}
+    maps, smooth = {}, {}
+    for size, c in K5_LEVELS:
+        feat = rand_feat(gen, b, size, c, torch.bfloat16)
+        nchw = feat.permute(0, 3, 1, 2)
+        maps[size] = feat
+        for kind in K5_KINDS:
+            grid = make_grid(kind, b, size, gen)
+            if kind == "smooth":
+                smooth[size] = grid
+            gy, gx = grid[..., 1], grid[..., 0]
+            ovf = ws.overflow_mask(size, size, gy, gx, 8, 64)
+            n_ovf = int(ovf.sum().item())
+            name = f"warp_window {size}²xC{c} B={b} {kind}"
+            check(kind == "smooth" or n_ovf > 0, f"{name}: no overflow pixel")
+            count = torch.zeros(1, dtype=torch.int64, device="cuda")
+            out = warp_window_cuda(feat, grid, mma_count=count)
+            plain = ws.warp_bilinear_windowed_ref(nchw, grid) \
+                .permute(0, 2, 3, 1)
+            m = ovf[..., None].expand_as(out)
+            check(torch.equal(out[m], plain[m]),
+                  f"{name}: overflow pixels differ from the plain version")
+            ulps = ws.bf16_ulps(out, plain)
+            check(ulps.max().item() <= 1,
+                  f"{name}: {ulps.max().item()} bf16 ulps from the plain "
+                  "version")
+            errs["K5"] = max(errs["K5"],
+                             (out.float() - plain.float()).abs().max().item())
+            pub = ws.warp_bilinear_windowed(nchw, grid).permute(0, 2, 3, 1)
+            exact = grid_sample_bilinear(nchw, grid).permute(0, 2, 3, 1)
+            check(torch.equal(pub, out) and torch.equal(pub[m], exact[m]),
+                  f"{name}: warp_bilinear_windowed differs from K5, or its "
+                  "overflow pixels from grid_sample_bilinear")
+            issued = count.item() * MMA_FLOPS
+            dense = ws.dense_mma_flops(b, size, size, c)
+            check(0 < issued < dense, f"{name}: {issued} MMA FLOPs issued, "
+                  f"dense {dense}")
+            n_off = int((ulps > 0).sum().item())
+            log(f"[experiment] {name}: overflow px {n_ovf} "
+                f"({n_ovf / ovf.numel():.2%}); {n_off} of {ulps.numel()} "
+                f"elements off the plain version (at most "
+                f"{ulps.max().item()} ulp); MMA FLOPs issued {issued:.4g} of "
+                f"dense {dense:.4g}")
+    variants = {}
+    for steps in K6_STEPS:
+        for label, dtype, acc in fb.VARIANTS:
+            x = torch.randn((fb.TILES, *fb.TILE), generator=gen,
+                            device="cuda").to(dtype)
+            out = fb.make(dtype, acc, steps)(x)
+            ref = fb.fma_chain_ref(x, acc, steps)
+            name = f"fma_dtype {label.strip()} {steps} steps"
+            if acc == torch.float32:
+                check(torch.equal(out, ref), f"{name}: not bit for bit")
+                n_off = 0
+            else:
+                ulps = ws.bf16_ulps(out, ref)
+                check(ulps.max().item() <= 1, f"{name}: {ulps.max().item()} "
+                      "bf16 ulps from the plain chain")
+                n_off = int((ulps > 0).sum().item())
+            errs["K6"] = max(errs["K6"],
+                             (out.float() - ref.float()).abs().max().item())
+            variants[(steps, label)] = (dtype, acc)
+            log(f"[experiment] {name}: {n_off} of {x.numel()} elements "
+                "differ from the plain chain")
+
+    # the experiments' paths: one call of each public function per level
+    # and variant, every count at 0 before
+    run_path("experiment warp_selection_matmul", lambda: [
+        ws.warp_bilinear_windowed(maps[size].permute(0, 3, 1, 2),
+                                  smooth[size]) for size, _ in K5_LEVELS],
+             {"warp_window": len(K5_LEVELS)}, 0)
+    calls = [(fb.make(dtype, acc), torch.ones((fb.TILES, *fb.TILE),
+                                               dtype=dtype, device="cuda"))
+             for _, dtype, acc in fb.VARIANTS]
+    run_path("experiment fma_dtype_bench",
+             lambda: [run(x) for run, x in calls],
+             {"fma_dtype": len(fb.VARIANTS)}, 0)
+
+    rows = {"K5": Row(), "K6": Row()}
+    levels = []
+    for size, c in K5_LEVELS:
+        feat, grid = maps[size], smooth[size]
+        nchw = feat.permute(0, 3, 1, 2)
+        # F.grid_sample on the NCHW map warp_bilinear_windowed takes, its
+        # grid in the map's dtype (cast outside the timing)
+        nchw_c, grid_bf16 = nchw.contiguous(), grid.to(torch.bfloat16)
+        k5 = graph_ms(lambda: warp_window_cuda(feat, grid), iters=50)
+        k3 = graph_ms(lambda: warp_per_frame(feat, grid), iters=50)
+        lib = graph_ms(lambda: F.grid_sample(
+            nchw_c, grid_bf16, mode="bilinear", padding_mode="zeros",
+            align_corners=False), iters=50)
+        p = event_ms(ws.warp_bilinear_windowed_ref, nchw, grid, iters=3)
+        bnd = warp_bound(feat, grid, c, 8 * c)
+        count = torch.zeros(1, dtype=torch.int64, device="cuda")
+        warp_window_cuda(feat, grid, mma_count=count)
+        issued = count.item() * MMA_FLOPS
+        dense = ws.dense_mma_flops(b, size, size, c)
+        rows["K5"].add(k5, p, lib, bnd)
+        levels.append({"size": size, "c": c, "b": b, "ms": k5, "k3_ms": k3,
+                       "plain_ms": p, "library_ms": lib, "bound_ms": bnd[0],
+                       "bound_by": bnd[1], "mma_flops_issued": issued,
+                       "mma_flops_dense": dense})
+        log(f"[experiment] warp_window {size}^2 C={c} B={b} bf16 smooth: "
+            f"K5 {k5:.4f} ms ({bnd[0] / k5:.1%} of bound), K3 {k3:.4f} ms, "
+            f"F.grid_sample {lib:.4f} ms, plain {p:.3f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]}); MMA FLOPs issued {issued:.4g} of "
+            f"dense {dense:.4g}")
+    probes = []
+    for (steps, label), (dtype, acc) in variants.items():
+        run = fb.make(dtype, acc, steps)
+        x = torch.randn((fb.TILES, *fb.TILE), generator=gen,
+                        device="cuda").to(dtype)
+        k6 = graph_ms(lambda: run(x), iters=20)
+        p = event_ms(fb.fma_chain_ref, x, acc, steps, iters=2)
+        bnd = fb.bound(x.numel(), dtype, acc, steps)
+        if steps == fb.N_OPS:
+            rows["K6"].add(k6, p, 0.0, bnd)
+        probes.append({"variant": label.strip(), "steps": steps, "ms": k6,
+                       "plain_ms": p, "bound_ms": bnd[0],
+                       "bound_by": bnd[1]})
+        log(f"[experiment] fma_dtype {label} {steps} steps: K6 {k6:.4f} ms "
+            f"({bnd[0] / k6:.1%} of bound), plain {p:.3f} ms, bound "
+            f"{bnd[0]:.4f} ms ({bnd[1]})")
+    for steps in K6_STEPS:
+        a, bb, cc = (p["ms"] for p in probes if p["steps"] == steps)
+        log(f"[experiment] fma_dtype {steps} steps: bf16-acc speedup vs "
+            f"f32-acc {a / cc:.2f}x, vs bf16-in/f32-acc {bb / cc:.2f}x")
+
+    # the two entry points as a user runs them
+    for name, want in (("warp_selection_matmul", len(K5_LEVELS)),
+                       ("fma_dtype_bench", len(K6_STEPS))):
+        _, out, secs = run_tool(name, [f"float_torch.experiments.{name}"],
+                                REPO, None, 120.0)
+        lines = [x for x in out.splitlines()
+                 if x.startswith(("bf16-acc", *(f"{s}^2" for s, _ in
+                                                K5_LEVELS)))]
+        check(len(lines) == want, f"{name} printed {len(lines)} of its "
+              f"{want} result lines:\n{out}")
+        log(f"[experiment] python -m float_torch.experiments.{name}: "
+            f"{secs:.1f} s")
+        log(out.strip())
+    k6 = dict(rows["K6"].json(), library_ms=None, probes=probes)
+    return {"K5": dict(rows["K5"].json(), max_abs_err=errs["K5"],
+                       levels=levels),
+            "K6": dict(k6, max_abs_err=errs["K6"])}
 
 
 def stage_chain(pipe, img, wave, noise) -> dict:
@@ -1810,12 +2000,15 @@ def phase_mesh(c1: dict) -> None:
             f"four ranks of one card")
 
 
-def run_tool(tag: str, args: list, root: Path, unified: str,
+def run_tool(tag: str, args: list, root: Path, unified: str | None,
              timeout: float) -> tuple:
-    """``python -m <args>`` on config 1's unified file (``FLOAT_CKPT``,
-    which spares each process the synthetic init); (JSON lines of its
-    output, its output, wall seconds), with its exit code checked."""
-    env = dict(os.environ, PYTHONPATH=str(REPO), FLOAT_CKPT=unified)
+    """``python -m <args>`` from ``root``, on config 1's unified file
+    (``FLOAT_CKPT``, which spares each process the synthetic init) unless
+    ``unified`` is None; (JSON lines of its output, its output, wall
+    seconds), with its exit code checked."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    if unified is not None:
+        env["FLOAT_CKPT"] = unified
     t0 = time.perf_counter()
     try:
         proc = subprocess.run([sys.executable, "-m", *args], cwd=root,
@@ -1963,6 +2156,9 @@ def main() -> int:
     gen.manual_seed(0)
     rows = {"K1": phase_kernels(gen, parent)}
     rows.update(phase_kernel_variants(gen, parent))
+    t0 = time.perf_counter()
+    rows.update(phase_experiments(gen))
+    log(f"[experiment] phase {time.perf_counter() - t0:.1f} s")
     phase_tiny()
     c1 = phase_config1()
     counts = phase_paths(c1)
@@ -1972,7 +2168,9 @@ def main() -> int:
     counts.update(phase_nodes(c1))
     for name in ("float_torch.parallel", "float_torch.bench",
                  "float_torch.tools.configs_bench",
-                 "float_torch.tools.serve_load_bench"):
+                 "float_torch.tools.serve_load_bench",
+                 "float_torch.experiments.warp_selection_matmul",
+                 "float_torch.experiments.fma_dtype_bench"):
         importlib.import_module(name)
     leaked = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "float_tpu"))
@@ -1981,16 +2179,19 @@ def main() -> int:
     launches = {"K1": c1["launches"].get("warp_shared", 0),
                 "K2": counts["rgb_in_kernel"].get("warp_rgb", 0),
                 "K3": counts["decode_batch=1"].get("warp_per_frame", 0),
-                "K4": c1["launches_k4"]}
+                "K4": c1["launches_k4"],
+                "K5": PATHS["experiment warp_selection_matmul"].get(
+                    "warp_window", 0),
+                "K6": PATHS["experiment fma_dtype_bench"].get("fma_dtype", 0)}
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed")
         return 1
     names = {"K1": "warp_shared", "K2": "warp_rgb", "K3": "warp_per_frame",
-             "K4": "K4"}
+             "K4": "K4", "K5": "warp_window", "K6": "fma_dtype"}
     kernels = [dict(ROWS[k], launches=launches[k], **rows[k],
                     launches_by_path={p: c.get(names[k], 0)
                                       for p, c in PATHS.items()})
-               for k in ("K1", "K2", "K3", "K4")]
+               for k in ROWS]
     log(json.dumps({"kernels": kernels}))
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

@@ -18,6 +18,9 @@ each function's twin is easy to find:
 - ``utils``    FLOP and parameter counts, stage timing, logging
 - ``serve``, ``client``, ``cli``  the HTTP daemon, its client and the
                command line (``python -m float_torch.cli``)
+- ``experiments``  the twins of the repository's TPU probes: the warp as
+               selection products on the tensor cores, and f32 against
+               packed bf16 arithmetic
 
 The package imports ``torch`` and never ``jax`` nor ``float_tpu``.
 """

@@ -21,8 +21,10 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "float_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# every kernel library of the package, one per csrc/<name>.cu
-SOURCES = ("warp_shared", "warp_rgb")
+# every kernel library of the package, one per csrc/<name>.cu: the
+# decode's warps, then the two experiments' kernels
+DECODE_SOURCES = ("warp_shared", "warp_rgb")
+SOURCES = DECODE_SOURCES + ("warp_window_mma", "fma_dtype")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 
@@ -78,7 +80,8 @@ def load(name: str) -> ctypes.CDLL:
     return _LOADED[name]
 
 
-def build_all() -> list[Path]:
-    """Build every kernel library of ``SOURCES`` at once, one nvcc each."""
-    with ThreadPoolExecutor(len(SOURCES)) as ex:
-        return list(ex.map(build, SOURCES))
+def build_all(names: tuple = SOURCES) -> list[Path]:
+    """Build the kernel libraries ``names`` (every one of ``SOURCES`` by
+    default) at once, one nvcc each."""
+    with ThreadPoolExecutor(len(names)) as ex:
+        return list(ex.map(build, names))

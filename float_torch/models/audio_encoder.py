@@ -38,6 +38,20 @@ def audio_projection(params, feats):
     return F.silu(_layer_norm(params["1"], _linear(params["0"], feats)))
 
 
+def encode_audio_with_prev(params, wave, prev_wave, cfg: FloatConfig,
+                           w2v_cfg: Wav2Vec2Config):
+    """Training-style forward with the previous frames' audio joined in
+    front (reference AudioEncoder.forward with prev_a, FLOAT.py:354-368):
+    seq_len = num_prev_frames + num_frames_for_clip over the joined wave
+    -> (B, seq_len, dim_w)."""
+    seq_len = cfg.num_prev_frames + cfg.num_frames_for_clip
+    joined = pad_wave_to_frames(torch.cat([prev_wave, wave], dim=1), seq_len,
+                                cfg)
+    feats = stacked_features(params["wav2vec2"], joined, seq_len, w2v_cfg,
+                             cfg.only_last_features)
+    return audio_projection(params["audio_projection"], feats)
+
+
 def encode_audio(params, wave, seq_len: int, cfg: FloatConfig,
                  w2v_cfg: Wav2Vec2Config):
     """wave (B, N) -> wa (B, seq_len, dim_w) (reference FLOAT.py:370-375).

@@ -163,14 +163,35 @@ def _project(params, feats):
     return _linear(params["feature_projection"]["projection"], h)
 
 
+def feat_extract_output_length(n: int, cfg: Wav2Vec2Config) -> int:
+    """Conv-stack output length for ``n`` input samples (HF
+    _get_feat_extract_output_lengths: L -> (L - k) // s + 1 per layer)."""
+    for k, s in zip(cfg.conv_kernel, cfg.conv_stride):
+        n = (n - k) // s + 1
+    return n
+
+
+def feature_extract(params, wave, seq_len: int, cfg: Wav2Vec2Config):
+    """Split stage 1 of the reference Wav2VecModel: conv features linearly
+    resampled to ``seq_len`` video frames -> (B, seq_len, conv_dim[-1])."""
+    feats = feature_extractor(params["feature_extractor"], wave, cfg)
+    return linear_interpolate_time(feats, seq_len)
+
+
+def encode(params, extract_features_out, cfg: Wav2Vec2Config,
+           collect_hidden: bool = True) -> EncoderOutput:
+    """Split stage 2: feature projection and transformer encoder over
+    already-extracted features."""
+    return encoder(params["encoder"], _project(params, extract_features_out),
+                   cfg, collect_hidden=collect_hidden)
+
+
 def wav2vec2_frame_features(params, wave, seq_len: int, cfg: Wav2Vec2Config,
                             collect_hidden: bool = True) -> EncoderOutput:
-    """The reference Wav2VecModel.forward: conv features linearly resampled
-    to ``seq_len`` video frames, then projected and encoded."""
-    feats = feature_extractor(params["feature_extractor"], wave, cfg)
-    feats = linear_interpolate_time(feats, seq_len)
-    return encoder(params["encoder"], _project(params, feats), cfg,
-                   collect_hidden=collect_hidden)
+    """The reference Wav2VecModel.forward: ``feature_extract`` then
+    ``encode``."""
+    return encode(params, feature_extract(params, wave, seq_len, cfg), cfg,
+                  collect_hidden=collect_hidden)
 
 
 def feature_vector_attention_mask(attention_mask, t_conv: int,
@@ -185,19 +206,26 @@ def feature_vector_attention_mask(attention_mask, t_conv: int,
     return (frame < lengths[:, None]).int()
 
 
-def ser_logits(params, wave, cfg: Wav2Vec2Config, attention_mask=None):
-    """Speech-emotion classifier: standard wav2vec2 forward (no frame
-    resampling), mean pool over time, dense/tanh/out_proj.
-    ``attention_mask`` (B, N) samples, 1 = real, shapes the encoder pass
-    only: the pool stays unmasked, as in the reference
-    (wav2vec2_ser.py:57-86)."""
+def wav2vec2_standard(params, wave, cfg: Wav2Vec2Config,
+                      attention_mask=None):
+    """The standard HF Wav2Vec2Model forward (no frame resampling) -> last
+    hidden state (B, T_conv, H); the SER tower's.  ``attention_mask``
+    (B, N) samples, 1 = real, goes onto the conv frame grid and into the
+    encoder."""
     feats = feature_extractor(params["feature_extractor"], wave, cfg)
     frame_mask = None
     if attention_mask is not None:
         frame_mask = feature_vector_attention_mask(attention_mask,
                                                    feats.shape[1], cfg)
-    h = encoder(params["encoder"], _project(params, feats), cfg,
-                attention_mask=frame_mask).last_hidden_state
+    return encoder(params["encoder"], _project(params, feats), cfg,
+                   attention_mask=frame_mask).last_hidden_state
+
+
+def ser_logits(params, wave, cfg: Wav2Vec2Config, attention_mask=None):
+    """Speech-emotion classifier: ``wav2vec2_standard``, mean pool over
+    time, dense/tanh/out_proj.  The mask shapes the encoder pass only: the
+    pool stays unmasked, as in the reference (wav2vec2_ser.py:57-86)."""
+    h = wav2vec2_standard(params, wave, cfg, attention_mask)
     x = torch.tanh(_linear(params["classifier"]["dense"], h.mean(dim=1)))
     return _linear(params["classifier"]["out_proj"], x)
 

@@ -444,7 +444,8 @@ class FloatPipeline:
 
     def warmup(self, seconds: float = 2.0, first_chunk: int = 8) -> float:
         """Run the serving paths once before the first request: on the
-        card this builds both kernel libraries (``kernels.build.build_all``)
+        card this builds the decode's two kernel libraries
+        (``kernels.build.build_all(DECODE_SOURCES)``)
         and lets cuDNN pick its algorithms for the full and first-chunk
         decode shapes.  One ``generate`` and one ``generate_stream`` per
         serving wire ("u8" raw, "yuv420" JPEG delivery) on seeded inputs of
@@ -453,8 +454,8 @@ class FloatPipeline:
         port."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
-            from ..kernels.build import build_all
-            build_all()
+            from ..kernels.build import DECODE_SOURCES, build_all
+            build_all(DECODE_SOURCES)
         cfg = self.cfg
         gen = torch.Generator().manual_seed(0)
         img = 0.1 * torch.randn((1, 3, cfg.input_size, cfg.input_size),

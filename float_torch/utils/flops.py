@@ -29,6 +29,11 @@ from typing import Dict
 from ..config import CHANNELS_MAP, FloatConfig
 
 H100_BF16_PEAK_FLOPS = 989.4e12
+# The same data sheet: HBM3 bytes/s, and the CUDA cores' f32 and (packed)
+# bf16 rates outside the tensor cores, an FMA counted as 2 FLOPs.
+H100_HBM_BPS = 3.35e12
+H100_F32_FLOPS = 67e12
+H100_BF16_VECTOR_FLOPS = 133.8e12
 
 
 def _n_gather_levels(size: int) -> int:

@@ -29,9 +29,13 @@ def last_card():
 
 @pytest.mark.cuda
 def test_launch_keeps_the_callers_device(last_card):
-    """K1, K2 and K3 launched on the last card, with card 0 current:
-    card 0 is still current afterwards, and a following device="cuda"
-    allocation lands on it.  (With one card both are card 0.)"""
+    """K1, K2, K3, K5 and K6 launched on the last card, with card 0
+    current: card 0 is still current afterwards, and a following
+    device="cuda" allocation lands on it.  (With one card both are card
+    0.)"""
+    from float_torch.experiments.fma_dtype_bench import make
+    from float_torch.experiments.warp_selection_matmul import (
+        warp_bilinear_windowed)
     from float_torch.kernels import LAUNCHES
     from float_torch.ops.warp import warp_per_frame, warp_rgb, warp_shared
     rng = np.random.default_rng(5)
@@ -42,13 +46,18 @@ def test_launch_keeps_the_callers_device(last_card):
 
     feat, grid = on_card(1, 32, 32, 32), on_card(4, 32, 32, 2, scale=0.5)
     wk = on_card(3, 32)
+    map5 = on_card(1, 16, 128, 128).to(torch.bfloat16)
+    grid5 = on_card(1, 128, 128, 2, scale=0.5)
     with torch.cuda.device(0):
         before = dict(LAUNCHES)
         warp_shared(feat, grid)
         warp_rgb(feat, grid, wk)
         warp_per_frame(feat.expand(4, -1, -1, -1).contiguous(), grid)
+        warp_bilinear_windowed(map5, grid5)
+        make(torch.float32, torch.float32)(on_card(1, 8, 128, 128))
         torch.cuda.synchronize(last_card)
         assert torch.cuda.current_device() == 0
         assert torch.empty(1, device="cuda").device == torch.device("cuda", 0)
-    for name in ("warp_shared", "warp_rgb", "warp_per_frame"):
+    for name in ("warp_shared", "warp_rgb", "warp_per_frame", "warp_window",
+                 "fma_dtype"):
         assert LAUNCHES[name] == before.get(name, 0) + 1

@@ -92,7 +92,10 @@ def test_port_never_imports_jax():
             "float_torch.tools.check_versions, float_torch.parallel, "
             "float_torch.parallel.mesh, float_torch.parallel.sharding, "
             "float_torch.bench, float_torch.tools.configs_bench, "
-            "float_torch.tools.serve_load_bench; "
+            "float_torch.tools.serve_load_bench, "
+            "float_torch.experiments.warp_selection_matmul, "
+            "float_torch.experiments.fma_dtype_bench, "
+            "float_torch.kernels.warp_window, float_torch.kernels.fma_dtype; "
             "bad = sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'float_tpu')); "
             "assert not bad, bad")

@@ -152,3 +152,82 @@ def test_fmt_forward_cfg(cfg_mode, dynamic):
                                 for k, v in inputs.items()}, **kw)
     assert got.shape == (b, prev + clip, TINY.dim_w)
     assert max_err(got, want) <= ATOL
+
+
+def _audio_params():
+    return {"wav2vec2": j_init.init_wav2vec2(TINY_W2V, 2),
+            "audio_projection": j_init.init_audio_projection(
+                TINY_W2V.num_hidden_layers * TINY_W2V.hidden_size,
+                TINY.dim_w, 3)}
+
+
+def test_encode_audio_with_prev():
+    params = _audio_params()
+    rng = np.random.default_rng(6)
+    per_frame = TINY.sampling_rate / TINY.fps
+    wave = randn(rng, 1, int(TINY.num_frames_for_clip * per_frame), scale=0.1)
+    prev = randn(rng, 1, int(TINY.num_prev_frames * per_frame), scale=0.1)
+    want = j_audio.encode_audio_with_prev(params, jnp.asarray(wave),
+                                          jnp.asarray(prev), TINY, TINY_W2V)
+    with torch.inference_mode():
+        got = t_audio.encode_audio_with_prev(
+            port_params(params), torch.from_numpy(wave),
+            torch.from_numpy(prev), TINY, TINY_W2V)
+    assert got.shape == want.shape == (
+        1, TINY.num_prev_frames + TINY.num_frames_for_clip, TINY.dim_w)
+    assert max_err(got, want) <= ATOL
+
+
+@pytest.mark.parametrize("n", [400, 4001, 15000])
+@pytest.mark.parametrize("cfg", [TINY_W2V, TINY_SER], ids=["base", "large"])
+def test_feat_extract_output_length(cfg, n):
+    got = t_w2v.feat_extract_output_length(n, cfg)
+    assert got == j_w2v.feat_extract_output_length(n, cfg)
+    wave = torch.zeros(1, n)
+    params = port_params(j_init.init_wav2vec2(cfg, 7))
+    with torch.inference_mode():
+        feats = t_w2v.feature_extractor(params["feature_extractor"], wave, cfg)
+    assert feats.shape[1] == got
+
+
+def test_feature_extract_and_encode():
+    jp = j_init.init_wav2vec2(TINY_W2V, 5)
+    wave = randn(np.random.default_rng(7), 2, 4000, scale=0.1)
+    want_feats = j_w2v.feature_extract(jp, jnp.asarray(wave), 10, TINY_W2V)
+    want = j_w2v.encode(jp, want_feats, TINY_W2V)
+    tp = port_params(jp)
+    with torch.inference_mode():
+        feats = t_w2v.feature_extract(tp, torch.from_numpy(wave), 10,
+                                      TINY_W2V)
+        got = t_w2v.encode(tp, feats, TINY_W2V)
+        whole = t_w2v.wav2vec2_frame_features(tp, torch.from_numpy(wave), 10,
+                                              TINY_W2V)
+    assert feats.shape == (2, 10, TINY_W2V.conv_dim[-1])
+    assert max_err(feats, want_feats) <= ATOL
+    assert len(got.hidden_states) == len(want.hidden_states) \
+        == TINY_W2V.num_hidden_layers + 1
+    for g, w in zip((got.last_hidden_state, *got.hidden_states),
+                    (want.last_hidden_state, *want.hidden_states)):
+        assert max_err(g, w) <= ATOL
+    assert torch.equal(whole.last_hidden_state, got.last_hidden_state)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "mask"])
+@pytest.mark.parametrize("cfg", [TINY_W2V, TINY_SER], ids=["base", "large"])
+def test_wav2vec2_standard(cfg, masked):
+    jp = j_init.init_wav2vec2(cfg, 8)
+    wave = randn(np.random.default_rng(8), 2, 3200, scale=0.1)
+    mask = None
+    if masked:
+        mask = np.ones((2, 3200), np.int32)
+        mask[1, 2000:] = 0
+    want = j_w2v.wav2vec2_standard(
+        jp, jnp.asarray(wave), cfg,
+        attention_mask=None if mask is None else jnp.asarray(mask))
+    with torch.inference_mode():
+        got = t_w2v.wav2vec2_standard(
+            port_params(jp), torch.from_numpy(wave), cfg,
+            attention_mask=None if mask is None else torch.from_numpy(mask))
+    assert got.shape == want.shape == (
+        2, t_w2v.feat_extract_output_length(3200, cfg), cfg.hidden_size)
+    assert max_err(got, want) <= ATOL
