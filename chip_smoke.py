@@ -21,8 +21,9 @@ wrappers.  Phases:
    Advanced tier's decode and its reference: 24, 12, 8, 4), on every
    grid kind of ``make_grid``: flows inside and far beyond its staged
    window, grids that leave the image, sparse far pixels in every tile,
-   NaN and infinite entries; timed at each level and batch beside its bound, and
-   at 24 frames beside F.grid_sample;
+   NaN and infinite entries (NaN at the same elements: a NaN coordinate
+   makes its pixel NaN, as in float_tpu); timed at each level and batch
+   beside its bound, and at 24 frames beside F.grid_sample;
 4. the port on the card against the port on the CPU at a tiny config in
    float32 (TF32 off), stage by stage;
 5. BASELINE config 1 end to end: 617.5 M synthetic parameters, a 512²
@@ -33,23 +34,22 @@ wrappers.  Phases:
    warps, and the largest tap displacement of its flows at each level;
 7. K3 (``warp_per_frame``) at every level of a 512² decode and, through
    ``grid_sample_bilinear``, at channel counts that fill no 16-byte
-   vector (an RGB image in bf16, C = 5 in float32), K2
-   (``warp_rgb``) at the 128²..512² levels and K4's shapes through K1
-   (the last two on every grid kind), each against its plain version,
+   vector (an RGB image in bf16, C = 5 in float32), bit for bit, K2
+   (``warp_rgb``) at the 128²..512² levels and K4's shapes through K1,
+   all on every grid kind, each against its plain version,
    then each kernel's row of the kernel table: ms, plain ms, library ms
    and bound at config-1 shapes;
-7b. the experiments: K5 (``warp_window``, the windowed selection-matmul
-   warp on the tensor cores) against its plain version at 128²x128,
-   256²x64 and 512²x32, 16 frames, on the smooth, far, out and mixed
-   grids (overflow pixels bit for bit, every other element within one
-   bf16 ulp; the public ``warp_bilinear_windowed``'s overflow pixels
-   against ``grid_sample_bilinear``; the MMAs it issued, counted by the
-   kernel, fewer than the dense count), K6 (``fma_dtype``) in its three variants at 64 and 1024
-   steps (f32 accumulators bit for bit, bf16 within one ulp); each
-   experiment's path (one public call per level or variant) with its
-   launch counts; K5 timed beside K3, F.grid_sample, its plain version
-   and its bound, with the MMA FLOPs issued and dense; K6 beside its
-   plain chain and its bound; both entry points (``python -m
+7b. the experiments: K5 (``warp_window``, the TPU's windowed
+   selection-matmul warp as a gather on the CUDA cores) against its
+   plain version at 128²x128, 256²x64 and 512²x32, 16 frames, on every
+   grid kind, bit for bit with NaN at the same elements (the public
+   ``warp_bilinear_windowed``'s overflow pixels against
+   ``grid_sample_bilinear``), K6 (``fma_dtype``) in its three variants at
+   64 and 1024 steps (f32 accumulators bit for bit, bf16 within one ulp);
+   each experiment's path (one public call per level or variant) with
+   its launch counts; K5 timed beside K3, F.grid_sample, its plain
+   version, its bound and the parent commit's K5 (``--parent``); K6
+   beside its plain chain and its bound; both entry points (``python -m
    float_torch.experiments.warp_selection_matmul``, ``...fma_dtype_bench``)
    as subprocesses;
 8. config 1's other paths, each with its launch counts: a decode with the
@@ -173,14 +173,12 @@ K1_MESH_BATCHES = (6, 3, 2)
 # and coordinates that must never become an index.
 GRID_KINDS = ("smooth", "far", "out", "mixed", "nonfinite")
 # The experiments' kernels (phase 7b): K5 at the TPU experiment's levels
-# and frame chunk on every finite grid kind of make_grid (all but "smooth"
-# give overflow pixels), K6 at the probe's chain lengths.
+# and frame chunk on every grid kind of make_grid (all but "smooth" give
+# overflow pixels), K6 at the probe's chain lengths.
 K5_LEVELS = ((128, 128), (256, 64), (512, 32))
 K5_BATCH = 16
-K5_KINDS = ("smooth", "far", "out", "mixed")
+K5_KINDS = GRID_KINDS
 K6_STEPS = (64, 1024)
-# the kernel libraries a parent checkout (``--parent``) builds
-KERNEL_SOURCES = ("warp_shared", "warp_rgb")
 CUDA = "float_torch/kernels/csrc/"
 ROWS = {   # kernel-table rows: the name the wrapper counts launches under
     "K1": {"name": "warp_shared", "route": "cuda",
@@ -198,20 +196,18 @@ ROWS = {   # kernel-table rows: the name the wrapper counts launches under
            "source": CUDA + "warp_shared.cu",
            "replaces": "float_tpu/ops/pallas/shift_warp_packed.py:35"},
     "K5": {"name": "warp_window", "route": "cuda",
-           "source": CUDA + "warp_window_mma.cu",
+           "source": CUDA + "warp_window.cu",
            "replaces": "experiments/pallas_warp_selection_matmul.py:36"},
     "K6": {"name": "fma_dtype", "route": "cuda",
            "source": CUDA + "fma_dtype.cu",
            "replaces": "experiments/vpu_dtype_bench.py:19"},
 }
 NEW_KERNELS = ("warp_per_frame", "warp_rgb")
-# Tolerances.  bf16 kernel vs plain: four f32 products summed in another
-# order, then one bf16 rounding -> 2^-7 of the map's magnitude.  f32: the
-# kernel rounds in the plain version's order; allow a few ulp.
+# Tolerances.  K1, K3 and K5 round every product and sum in their plain
+# versions' order and are held to them bit for bit.  K2 sums its C->3
+# contraction in another order than the plain matmul: 2^-7 (bf16, one
+# rounding of f32 sums) or 1e-5 (f32) of max|feat| * max_o sum_c |wk[o, c]|.
 BF16_TOL = 2.0 ** -7
-F32_TOL = 1e-6
-# K2 sums its C->3 contraction in another order than the plain matmul:
-# 2^-7 (bf16) or 1e-5 (f32) of max|feat| * max_o sum_c |wk[o, c]|.
 RGB_F32_TOL = 1e-5
 # Card vs CPU at the tiny f32 config: cuBLAS / cuDNN sum in other orders
 # (about 1e-7 relative each), carried through 9 Euler steps and 3 CFG
@@ -372,11 +368,12 @@ def vs_parent(ms, parent_ms) -> str:
 
 
 class ParentKernels:
-    """K1, K2 and K3 of another checkout (``root``, e.g. the parent commit
-    unpacked by ``git archive``), called through that checkout's own
-    wrappers: its ``float_torch`` is imported under another name, so its
-    kernels are built from its own sources into its own ``build/`` and
-    launched with its own C signatures, whatever they are."""
+    """K1, K2, K3 and K5 of another checkout (``root``, e.g. the parent
+    commit unpacked by ``git archive``), called through that checkout's
+    own wrappers: its ``float_torch`` is imported under another name, so
+    its kernels (every library of its ``build.SOURCES``) are built from
+    its own sources into its own ``build/`` and launched with its own C
+    signatures, whatever they are."""
 
     NAME = "parent_float_torch"
 
@@ -391,14 +388,13 @@ class ParentKernels:
         sys.modules[self.NAME] = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(sys.modules[self.NAME])
         kernels = f"{self.NAME}.kernels"
-        self.shared, self.rgb, build = (
+        self.shared, self.rgb, self.window, build = (
             importlib.import_module(f"{kernels}.{m}")
-            for m in ("warp_shared", "warp_rgb", "build"))
-        for mod in (self.shared, self.rgb, build):
+            for m in ("warp_shared", "warp_rgb", "warp_window", "build"))
+        for mod in (self.shared, self.rgb, self.window, build):
             if not Path(mod.__file__).is_relative_to(pkg):
                 raise RuntimeError(f"{mod.__name__} loaded from {mod.__file__}")
-        with ThreadPoolExecutor(len(KERNEL_SOURCES)) as ex:
-            list(ex.map(build.build, KERNEL_SOURCES))
+        build.build_all()
 
     def k1(self, feat, grid):
         return lambda: self.shared.warp_shared_cuda(feat, grid)
@@ -408,6 +404,9 @@ class ParentKernels:
 
     def k2(self, feat, grid, wk):
         return lambda: self.rgb.warp_rgb_cuda(feat, grid, wk)
+
+    def k5(self, feat, grid):
+        return lambda: self.window.warp_window_cuda(feat, grid)
 
 
 def grid_sample_call(feat, grid):
@@ -478,9 +477,20 @@ def rand_feat(gen, b, size, c, dtype):
 
 
 def compare(name, out, ref, tol) -> float:
-    err = (out.float() - ref.float()).abs().max().item()
-    check(out.shape == ref.shape and err <= tol,
-          f"{name}: max|diff| {err} > {tol}")
+    """max|out - ref| off the NaN elements of ref, held to ``tol``; out
+    must be NaN at exactly those elements (a NaN grid coordinate makes
+    its pixel NaN, as in float_tpu).  Returns the error (inf where the
+    shapes or the NaN elements differ)."""
+    nan = ref.isnan()
+    if out.shape != ref.shape or not torch.equal(out.isnan(), nan):
+        err = math.inf
+    elif ref.numel() == 0:
+        err = 0.0
+    else:
+        diff = (out.float() - ref.float()).abs()
+        # the same infinity on both sides is no error
+        err = torch.where(nan | (out == ref), 0.0, diff).max().item()
+    check(err <= tol, f"{name}: max|diff| {err} > {tol}, or NaN elsewhere")
     return err
 
 
@@ -545,9 +555,10 @@ def phase_kernels(gen: torch.Generator, parent=None) -> dict:
 
 
 def phase_kernel_variants(gen: torch.Generator, parent=None) -> dict:
-    """K3, K2 and K4's shapes against their plain versions, then their
-    rows of the kernel table at config-1 shapes (each in turns with the
-    parent commit's build, ``parent``, when given)."""
+    """K3 (bit for bit), K2 and K4's shapes against their plain versions
+    on every grid kind, then their rows of the kernel table at config-1
+    shapes (each in turns with the parent commit's build, ``parent``,
+    when given)."""
     from float_torch.ops.warp import (warp_per_frame, warp_per_frame_ref,
                                       warp_rgb, warp_rgb_ref, warp_shared,
                                       warp_shared_ref)
@@ -557,17 +568,14 @@ def phase_kernel_variants(gen: torch.Generator, parent=None) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             for b in (1, 4):
                 feat = rand_feat(gen, b, size, c, dtype)
-                scale = feat.float().abs().max().item()
-                tol = (BF16_TOL if dtype == torch.bfloat16 else F32_TOL) \
-                    * scale
-                for kind in ("smooth", "far", "out"):
+                for kind in GRID_KINDS:
                     grid = make_grid(kind, b, size, gen)
                     errs["K3"] = max(errs["K3"], compare(
                         f"warp_per_frame {size}²xC{c} B={b} {dtype} {kind}",
                         warp_per_frame(feat, grid),
-                        warp_per_frame_ref(feat, grid), tol))
-        log(f"[kernel] warp_per_frame {size}^2 C={c}: agrees with the plain "
-            f"version (bf16 and f32, B 1 and 4)")
+                        warp_per_frame_ref(feat, grid), 0.0))
+        log(f"[kernel] warp_per_frame {size}^2 C={c}: equal to the plain "
+            f"version (bf16 and f32, B 1 and 4, {', '.join(GRID_KINDS)})")
     # channels that fill no 16-byte vector (an RGB image at a size the TPU
     # kernel takes), one channel a thread, through grid_sample_bilinear
     from float_torch.kernels import LAUNCHES
@@ -575,9 +583,7 @@ def phase_kernel_variants(gen: torch.Generator, parent=None) -> dict:
                                       grid_sample_bilinear_ref)
     for size, c, dtype in ((256, 3, torch.bfloat16), (64, 5, torch.float32)):
         feat = rand_feat(gen, 2, size, c, dtype).permute(0, 3, 1, 2)
-        tol = (BF16_TOL if dtype == torch.bfloat16 else F32_TOL) \
-            * feat.float().abs().max().item()
-        for kind in ("smooth", "far", "out"):
+        for kind in GRID_KINDS:
             grid = make_grid(kind, 2, size, gen)
             before = LAUNCHES["warp_per_frame"]
             out = grid_sample_bilinear(feat, grid)
@@ -585,9 +591,9 @@ def phase_kernel_variants(gen: torch.Generator, parent=None) -> dict:
                   f"grid_sample_bilinear C={c} {dtype}: K3 not launched")
             errs["K3"] = max(errs["K3"], compare(
                 f"grid_sample_bilinear {size}²xC{c} B=2 {dtype} {kind}", out,
-                grid_sample_bilinear_ref(feat, grid), tol))
+                grid_sample_bilinear_ref(feat, grid), 0.0))
         log(f"[kernel] warp_per_frame {size}^2 C={c} {dtype}: K3 through "
-            f"grid_sample_bilinear agrees with the plain version")
+            f"grid_sample_bilinear equal to the plain version")
 
     for size, c in ((128, 128), (256, 64), (512, 32)):
         wk = torch.randn((3, c), generator=gen, device="cuda") / math.sqrt(c)
@@ -670,19 +676,19 @@ def phase_kernel_variants(gen: torch.Generator, parent=None) -> dict:
     return {k: dict(rows[k].json(), max_abs_err=errs[k]) for k in rows}
 
 
-def phase_experiments(gen: torch.Generator) -> dict:
+def phase_experiments(gen: torch.Generator, parent=None) -> dict:
     """Phase 7b.  K5 against its plain version at the TPU experiment's
-    levels and chunk on the finite grid kinds (overflow pixels bit for
-    bit, every other element within one bf16 ulp; the public function's
-    overflow pixels against grid_sample_bilinear; the MMAs it issued
-    fewer than the dense count), K6's three variants against their plain
-    chains at both chain lengths (f32 accumulators bit for bit, bf16
-    within one ulp); then each experiment's path with its launch counts,
-    each kernel's times beside its bound, and both entry points as
+    levels and chunk on every grid kind (bit for bit, NaN at the same
+    elements; the public function's overflow pixels against
+    grid_sample_bilinear), K6's three variants against their plain chains
+    at both chain lengths (f32 accumulators bit for bit, bf16 within one
+    ulp); then each experiment's path with its launch counts, each
+    kernel's times beside its bound (K5 in turns with the parent commit's
+    build, ``parent``, when given), and both entry points as
     subprocesses."""
     from float_torch.experiments import fma_dtype_bench as fb
     from float_torch.experiments import warp_selection_matmul as ws
-    from float_torch.kernels.warp_window import MMA_FLOPS, warp_window_cuda
+    from float_torch.kernels.warp_window import warp_window_cuda
     from float_torch.ops.warp import grid_sample_bilinear, warp_per_frame
 
     b = K5_BATCH
@@ -701,34 +707,23 @@ def phase_experiments(gen: torch.Generator) -> dict:
             n_ovf = int(ovf.sum().item())
             name = f"warp_window {size}²xC{c} B={b} {kind}"
             check(kind == "smooth" or n_ovf > 0, f"{name}: no overflow pixel")
-            count = torch.zeros(1, dtype=torch.int64, device="cuda")
-            out = warp_window_cuda(feat, grid, mma_count=count)
+            out = warp_window_cuda(feat, grid)
             plain = ws.warp_bilinear_windowed_ref(nchw, grid) \
                 .permute(0, 2, 3, 1)
+            errs["K5"] = max(errs["K5"], compare(name, out, plain, 0.0))
+            n_nan = int(plain.isnan().any(-1).sum().item())
+            check((n_nan > 0) == (kind == "nonfinite"),
+                  f"{name}: {n_nan} NaN pixels")
             m = ovf[..., None].expand_as(out)
-            check(torch.equal(out[m], plain[m]),
-                  f"{name}: overflow pixels differ from the plain version")
-            ulps = ws.bf16_ulps(out, plain)
-            check(ulps.max().item() <= 1,
-                  f"{name}: {ulps.max().item()} bf16 ulps from the plain "
-                  "version")
-            errs["K5"] = max(errs["K5"],
-                             (out.float() - plain.float()).abs().max().item())
             pub = ws.warp_bilinear_windowed(nchw, grid).permute(0, 2, 3, 1)
             exact = grid_sample_bilinear(nchw, grid).permute(0, 2, 3, 1)
-            check(torch.equal(pub, out) and torch.equal(pub[m], exact[m]),
-                  f"{name}: warp_bilinear_windowed differs from K5, or its "
-                  "overflow pixels from grid_sample_bilinear")
-            issued = count.item() * MMA_FLOPS
-            dense = ws.dense_mma_flops(b, size, size, c)
-            check(0 < issued < dense, f"{name}: {issued} MMA FLOPs issued, "
-                  f"dense {dense}")
-            n_off = int((ulps > 0).sum().item())
+            compare(f"{name}: warp_bilinear_windowed against K5", pub, out,
+                    0.0)
+            compare(f"{name}: overflow pixels against grid_sample_bilinear",
+                    pub[m], exact[m], 0.0)
             log(f"[experiment] {name}: overflow px {n_ovf} "
-                f"({n_ovf / ovf.numel():.2%}); {n_off} of {ulps.numel()} "
-                f"elements off the plain version (at most "
-                f"{ulps.max().item()} ulp); MMA FLOPs issued {issued:.4g} of "
-                f"dense {dense:.4g}")
+                f"({n_ovf / ovf.numel():.2%}), NaN px {n_nan}; equal to the "
+                "plain version")
     variants = {}
     for steps in K6_STEPS:
         for label, dtype, acc in fb.VARIANTS:
@@ -772,27 +767,30 @@ def phase_experiments(gen: torch.Generator) -> dict:
         # F.grid_sample on the NCHW map warp_bilinear_windowed takes, its
         # grid in the map's dtype (cast outside the timing)
         nchw_c, grid_bf16 = nchw.contiguous(), grid.to(torch.bfloat16)
-        k5 = graph_ms(lambda: warp_window_cuda(feat, grid), iters=50)
+        k5, pk5 = timed(lambda: warp_window_cuda(feat, grid),
+                        parent and parent.k5(feat, grid))
         k3 = graph_ms(lambda: warp_per_frame(feat, grid), iters=50)
         lib = graph_ms(lambda: F.grid_sample(
             nchw_c, grid_bf16, mode="bilinear", padding_mode="zeros",
             align_corners=False), iters=50)
         p = event_ms(ws.warp_bilinear_windowed_ref, nchw, grid, iters=3)
         bnd = warp_bound(feat, grid, c, 8 * c)
-        count = torch.zeros(1, dtype=torch.int64, device="cuda")
-        warp_window_cuda(feat, grid, mma_count=count)
-        issued = count.item() * MMA_FLOPS
-        dense = ws.dense_mma_flops(b, size, size, c)
-        rows["K5"].add(k5, p, lib, bnd)
-        levels.append({"size": size, "c": c, "b": b, "ms": k5, "k3_ms": k3,
-                       "plain_ms": p, "library_ms": lib, "bound_ms": bnd[0],
-                       "bound_by": bnd[1], "mma_flops_issued": issued,
-                       "mma_flops_dense": dense})
+        rows["K5"].add(k5, p, lib, bnd, pk5)
+        level = {"size": size, "c": c, "b": b, "ms": k5, "k3_ms": k3,
+                 "plain_ms": p, "library_ms": lib, "bound_ms": bnd[0],
+                 "bound_by": bnd[1]}
+        if pk5 is not None:
+            level["parent_ms"] = pk5
+        levels.append(level)
         log(f"[experiment] warp_window {size}^2 C={c} B={b} bf16 smooth: "
-            f"K5 {k5:.4f} ms ({bnd[0] / k5:.1%} of bound), K3 {k3:.4f} ms, "
-            f"F.grid_sample {lib:.4f} ms, plain {p:.3f} ms, bound "
-            f"{bnd[0]:.4f} ms ({bnd[1]}); MMA FLOPs issued {issued:.4g} of "
-            f"dense {dense:.4g}")
+            f"K5 {k5:.4f} ms{vs_parent(k5, pk5)} ({bnd[0] / k5:.1%} of "
+            f"bound), K3 {k3:.4f} ms, F.grid_sample {lib:.4f} ms, plain "
+            f"{p:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})")
+    k5 = rows["K5"]
+    log(f"[experiment] warp_window, the three levels: K5 {k5.ms:.4f} ms"
+        f"{vs_parent(k5.ms, k5.parent_ms)}, F.grid_sample "
+        f"{k5.library_ms:.4f} ms, bound {sum(k5.bound.values()):.4f} ms "
+        f"({sum(k5.bound.values()) / k5.ms:.1%})")
     probes = []
     for (steps, label), (dtype, acc) in variants.items():
         run = fb.make(dtype, acc, steps)
@@ -2157,7 +2155,7 @@ def main() -> int:
     rows = {"K1": phase_kernels(gen, parent)}
     rows.update(phase_kernel_variants(gen, parent))
     t0 = time.perf_counter()
-    rows.update(phase_experiments(gen))
+    rows.update(phase_experiments(gen, parent))
     log(f"[experiment] phase {time.perf_counter() - t0:.1f} s")
     phase_tiny()
     c1 = phase_config1()

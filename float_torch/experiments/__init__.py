@@ -1,8 +1,10 @@
 """Counterparts of the repository's two TPU probes in ``experiments/``,
 each a hand-written Hopper kernel beside its plain PyTorch version:
 
-- ``warp_selection_matmul``: the bilinear warp as selection products on
-  the tensor cores (K5, ``kernels/csrc/warp_window_mma.cu``);
+- ``warp_selection_matmul``: the TPU's windowed selection-matmul warp,
+  on the card a gather on the CUDA cores (K5,
+  ``kernels/csrc/warp_window.cu``), beside the exact gather K3 and
+  ``F.grid_sample``;
 - ``fma_dtype_bench``: a dependent multiply-add chain in f32 and packed
   bf16 on the CUDA cores (K6, ``kernels/csrc/fma_dtype.cu``).
 

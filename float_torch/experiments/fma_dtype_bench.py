@@ -85,13 +85,17 @@ def make(dtype: torch.dtype, acc_dtype: torch.dtype, n_ops: int = N_OPS):
 def bound(n: int, dtype: torch.dtype, acc_dtype: torch.dtype,
           n_ops: int) -> tuple:
     """(least ms on an H100, "bytes" or "operations"): n elements read and
-    written once in dtype, against 2 n_ops operations an element at the
-    CUDA cores' rate for acc_dtype (f32 67, bf16 133.8 TFLOP/s)."""
+    written once in dtype, against n_ops steps an element, each step two
+    instructions, because the probe rounds the product before the add: a
+    multiply and an add, each at the CUDA cores' issue rate for acc_dtype.
+    The published rates (f32 67, packed bf16 133.8 TFLOP/s) count a fused
+    multiply-add as 2 operations, so an instruction issues at half of
+    them."""
     esize = torch.empty((), dtype=dtype).element_size()
     rate = H100_F32_FLOPS if acc_dtype == torch.float32 \
         else H100_BF16_VECTOR_FLOPS
     tb = 2 * n * esize / H100_HBM_BPS * 1e3
-    to = 2 * n * n_ops / rate * 1e3
+    to = 2 * n * n_ops / (rate / 2) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 

@@ -1,10 +1,21 @@
-"""The bilinear warp as selection products on the tensor cores (twin of
-``experiments/pallas_warp_selection_matmul.py``).
+"""The bilinear warp of the TPU's selection-matmul experiment (twin of
+``experiments/pallas_warp_selection_matmul.py``), and its answer on an
+H100.
 
-The question it asks of an H100: can the matrix units beat a gather for
-the decode's warp?  A bilinear tap is a weighted one-hot selection, so a
+The TPU experiment asked whether the matrix unit beats a gather for the
+decode's warp: a bilinear tap is a weighted one-hot selection, so a
 tile's output is a sum over window rows of (selection weights) x (window
-row): matrix work, where the gathers K1 and K3 are memory work.
+row).  Mosaic has no vector gather, so on the TPU the matrix unit was the
+only way to select.  On an NVIDIA H100 80GB HBM3 (700 W power limit,
+``chip_smoke.py`` phase 7b, 512^2 x 32 channels, 16 frames, bf16) the
+selection products on the tensor cores (``mma.sync`` bf16, only the
+products that can hold a nonzero weight, one accumulator per tap) took
+0.6145 ms, 27.7 % of the 0.1703 ms bytes bound, where the gather K3 took
+0.2314 ms and ``F.grid_sample`` 0.4583 ms: the function does about two
+operations per byte, so no tensor-core design can be bound by anything
+but bytes, and selecting on them costs latency, fragments and barriers.
+So K5 is now a gather on the CUDA cores (``kernels/csrc/warp_window.cu``)
+that computes the experiment's function exactly.
 
 The function (``warp_bilinear_windowed``, the TPU's
 ``warp_bilinear_pallas``): feat (B, C, H, W) sampled at grid (B, H, W, 2)
@@ -15,14 +26,13 @@ in-image taps all lie there takes the selection product: each tap weighs
 bf16(wx * wy), the four products are summed in f32, row y0 before row
 y0 + 1, and rounded once to bf16 (``warp_window_ref``).  Any other pixel
 (``overflow_mask``) takes the exact warp,
-``float_torch.ops.warp.grid_sample_bilinear_ref``.
+``float_torch.ops.warp.grid_sample_bilinear_ref``.  Taps follow
+``float_torch.ops.warp.tap_floor``: a NaN coordinate gives NaN in every
+channel, as on the TPU.
 
-CUDA tensors take K5 (``kernels/csrc/warp_window_mma.cu``), which issues
-only the MMAs that can hold a nonzero weight and fixes the overflow pixels
-in the same launch; CPU tensors take the plain version.  ``main`` prints
-the experiment's table: per level, K5 beside K3 (the exact warp),
-``F.grid_sample`` and the plain version, its bound, its overflow pixels
-and the MMA FLOPs it issued beside the dense count.
+CUDA tensors take K5; CPU tensors take the plain version.  ``main``
+prints the experiment's table: per level, K5 beside K3 (the exact warp),
+``F.grid_sample``, the plain version, its bound and its overflow pixels.
 
     python -m float_torch.experiments.warp_selection_matmul [--device cpu]
 """
@@ -35,8 +45,8 @@ import sys
 import torch
 import torch.nn.functional as F
 
-from ..kernels.warp_window import MMA_FLOPS, TC, TR
-from ..ops.warp import grid_sample_bilinear_ref, warp_per_frame
+from ..kernels.warp_window import TC, TR
+from ..ops.warp import grid_sample_bilinear_ref, tap_floor, warp_per_frame
 from ..runtime.pipeline import _checked_device
 from ..utils.flops import H100_HBM_BPS
 from . import time_ms
@@ -64,15 +74,11 @@ def window_starts(h: int, w: int, my: int, mx: int, device=None) -> tuple:
 
 
 def _taps(h: int, w: int, gy: torch.Tensor, gx: torch.Tensor) -> tuple:
-    """(y0, x0, ty, tx): the top-left tap (int64; its floor clamped to
-    +-2^30, where every tap is outside the image either way) and the
-    fractions, rounded op by op in f32."""
-    fy = ((gy.float() + 1.0) * h - 1.0) * 0.5
-    fx = ((gx.float() + 1.0) * w - 1.0) * 0.5
-    y0f, x0f = torch.floor(fy), torch.floor(fx)
-    lim = float(2 ** 30)
-    return (y0f.clamp(-lim, lim).long(), x0f.clamp(-lim, lim).long(),
-            fy - y0f, fx - x0f)
+    """(y0, x0, ty, tx): the top-left tap (``tap_floor``: int64, NaN -> 0,
+    far values saturated) and the fractions, rounded op by op in f32."""
+    y0, ty = tap_floor(((gy.float() + 1.0) * h - 1.0) * 0.5)
+    x0, tx = tap_floor(((gx.float() + 1.0) * w - 1.0) * 0.5)
+    return y0, x0, ty, tx
 
 
 def _bad(t, lo, size: int, win: int):
@@ -97,10 +103,12 @@ def warp_window_ref(feat_nhwc: torch.Tensor, gy: torch.Tensor,
                     weight_dtype=torch.bfloat16) -> torch.Tensor:
     """Plain version of K5's body (the TPU's ``_warp_pallas_nhwc``): feat
     (B, H, W, C), gy, gx (B, H, W) -> (B, H, W, C) in feat's dtype.  Each
-    tap in the image and in the pixel's window weighs
-    ``weight_dtype(wx * wy)``; the products are summed in f32 as
-    (t00 + t01) + (t10 + t11) and rounded once.  Overflow pixels keep
-    their in-window taps only, as the TPU body computes them."""
+    axis weighs a tap in the image and in the pixel's window by its
+    bilinear weight and any other tap 0, and a tap weighs
+    ``weight_dtype(wy * wx)``, as the TPU body's selection product (a NaN
+    axis weight makes the pixel NaN there too); the products are summed in
+    f32 as (t00 + t01) + (t10 + t11) and rounded once.  Overflow pixels
+    keep their in-window taps only, as the TPU body computes them."""
     b, h, w, c = feat_nhwc.shape
     y0, x0, ty, tx = _taps(h, w, gy, gx)
     wr, wc = window_size(h, w, my, mx)
@@ -108,16 +116,21 @@ def warp_window_ref(feat_nhwc: torch.Tensor, gy: torch.Tensor,
     rs, cs = rs[None, :, None], cs[None, None, :]
     flat = feat_nhwc.float().reshape(b, h * w, c)
     frame = torch.arange(b, device=feat_nhwc.device)[:, None, None]
+    xs = []
+    for dx, wx in ((0, 1.0 - tx), (1, tx)):
+        xx = x0 + dx
+        ok = (xx >= 0) & (xx < w) & (xx >= cs) & (xx < cs + wc)
+        xs.append((xx, ok, torch.where(ok, wx, 0.0)))
     rows = []
     for dy, wy in ((0, 1.0 - ty), (1, ty)):
         yy = y0 + dy
         row_ok = (yy >= 0) & (yy < h) & (yy >= rs) & (yy < rs + wr)
+        wy = torch.where(row_ok, wy, 0.0)
         row = None
-        for dx, wx in ((0, 1.0 - tx), (1, tx)):
-            xx = x0 + dx
-            ok = row_ok & (xx >= 0) & (xx < w) & (xx >= cs) & (xx < cs + wc)
-            sel = torch.where(ok, (wx * wy).to(weight_dtype).float(), 0.0)
-            term = flat[frame, torch.where(ok, yy * w + xx, 0)] * sel[..., None]
+        for xx, ok, wx in xs:
+            sel = (wy * wx).to(weight_dtype).float()
+            idx = torch.where(row_ok & ok, yy * w + xx, 0)
+            term = flat[frame, idx] * sel[..., None]
             row = term if row is None else row + term
         rows.append(row)
     return (rows[0] + rows[1]).to(feat_nhwc.dtype)
@@ -173,29 +186,15 @@ def warp_bilinear_windowed(feat_nchw: torch.Tensor, grid: torch.Tensor,
     """grid_sample_bilinear by the windowed selection products (twin of
     ``warp_bilinear_pallas``): feat (B, C, H, W) bf16, grid (B, H, W, 2)
     normalised xy -> (B, C, H, W) bf16.  CUDA tensors take K5 (one launch,
-    overflow pixels fixed inside; a C that is not a multiple of 8 is
-    padded with zero channels for the kernel's 8-channel blocks), CPU
-    tensors the plain version.  Raises on what ``supports`` refuses."""
+    overflow pixels exact inside it), CPU tensors the plain version.
+    Raises on what ``supports`` refuses."""
     _check(feat_nchw, grid)
     if feat_nchw.device.type == "cpu" and grid.device.type == "cpu":
         return warp_bilinear_windowed_ref(feat_nchw, grid, my, mx)
     from ..kernels.warp_window import warp_window_cuda
-    c = feat_nchw.shape[1]
     nhwc = feat_nchw.permute(0, 2, 3, 1).contiguous()
-    if c % 8:
-        nhwc = F.pad(nhwc, (0, 8 - c % 8))
     out = warp_window_cuda(nhwc, grid.float().contiguous(), my, mx)
-    return out[..., :c].permute(0, 3, 1, 2)
-
-
-def dense_mma_flops(b: int, h: int, w: int, c: int, my: int = 8,
-                    mx: int = 64) -> int:
-    """The selection products of b frames done densely, every window row
-    against every window column: the TPU kernel's cost estimate (K5
-    issues only the products that can hold a nonzero weight; its launch
-    counts them, ``warp_window_cuda(mma_count=)``)."""
-    wr, wc = window_size(h, w, my, mx)
-    return 2 * b * (h // TR) * (w // TC) * wr * TR * TC * wc * c
+    return out.permute(0, 3, 1, 2)
 
 
 def make_grid(b: int, size: int, amp_px: float, gen: torch.Generator,
@@ -231,7 +230,6 @@ def level_row(size: int, c: int, b: int, device: torch.device,
     row = {"size": size, "c": c, "b": b,
            "overflow_px": int(overflow_mask(size, size, gy, gx, 8, 64)
                               .sum().item()),
-           "mma_flops_dense": dense_mma_flops(b, size, size, c),
            "plain_ms": time_ms(
                lambda: warp_bilinear_windowed_ref(feat, grid), device,
                max(1, iters // 10))}
@@ -241,10 +239,7 @@ def level_row(size: int, c: int, b: int, device: torch.device,
         from ..kernels.warp_window import warp_window_cuda
         nhwc = feat.permute(0, 2, 3, 1).contiguous()
         grid_bf16 = grid.to(feat.dtype)
-        count = torch.zeros(1, dtype=torch.int64, device=device)
-        warp_window_cuda(nhwc, grid, mma_count=count)
         row.update(
-            mma_flops_issued=count.item() * MMA_FLOPS,
             k5_ms=time_ms(lambda: warp_window_cuda(nhwc, grid), device,
                           iters),
             k3_ms=time_ms(lambda: warp_per_frame(nhwc, grid), device, iters),
@@ -258,16 +253,14 @@ def level_row(size: int, c: int, b: int, device: torch.device,
 
 def format_row(row: dict) -> str:
     head = f"{row['size']}^2 x {row['c']} B={row['b']}"
-    issued = row.get("mma_flops_issued")
-    issued = "not measured (CPU)" if issued is None else f"{issued:.4g}"
-    mma = (f"MMA FLOPs issued {issued} of dense "
-           f"{row['mma_flops_dense']:.4g}; overflow px {row['overflow_px']}")
+    ovf = f"overflow px {row['overflow_px']}"
     if "k5_ms" not in row:
-        return f"{head}: plain {row['plain_ms']:.3f} ms (CPU host clock); {mma}"
+        return (f"{head}: plain {row['plain_ms']:.3f} ms (CPU host clock); "
+                f"{ovf}")
     return (f"{head}: K5 {row['k5_ms']:.4f} ms, K3 {row['k3_ms']:.4f} ms, "
             f"F.grid_sample {row['grid_sample_ms']:.4f} ms, plain "
             f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
-            f"(bytes, {row['bound_ms'] / row['k5_ms']:.1%}); {mma}")
+            f"(bytes, {row['bound_ms'] / row['k5_ms']:.1%}); {ovf}")
 
 
 def main(argv=None) -> list:

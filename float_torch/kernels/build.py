@@ -24,7 +24,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # every kernel library of the package, one per csrc/<name>.cu: the
 # decode's warps, then the two experiments' kernels
 DECODE_SOURCES = ("warp_shared", "warp_rgb")
-SOURCES = DECODE_SOURCES + ("warp_window_mma", "fma_dtype")
+SOURCES = DECODE_SOURCES + ("warp_window", "fma_dtype")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

@@ -1,6 +1,7 @@
-// Pieces shared by the bilinear warp kernels (warp_shared.cu, warp_rgb.cu):
-// 16-byte channel-vector loads and stores, the source coordinate of
-// grid_sample with align_corners=False, rounded op by op like the plain
+// Pieces shared by the bilinear warp kernels (warp_shared.cu, warp_rgb.cu,
+// warp_window.cu): 16-byte channel-vector loads and stores (and one-channel
+// ones, Scalar), the source coordinate of grid_sample with
+// align_corners=False and its taps, rounded op by op like the plain
 // PyTorch version (float_torch/ops/warp.py::_warp_f32), and the staging of
 // the shared-map kernels (K1, K2): a block stages a window of the map once
 // for every frame to gather from.  K1 first copies its tile's grid entries
@@ -91,6 +92,41 @@ struct Vec<__nv_bfloat16> {
     return __float2bfloat16_rn(v);
   }
 };
+
+__device__ __forceinline__ float widen(float v) { return v; }
+__device__ __forceinline__ float widen(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// One channel per load and store: Vec's interface for a C that is not a
+// whole number of 16-byte vectors.
+template <typename T>
+struct Scalar {
+  static constexpr int N = 1;
+  __device__ __forceinline__ static void load(const T* p, float* v) {
+    v[0] = widen(p[0]);
+  }
+  __device__ __forceinline__ static void store(T* p, const float* v) {
+    p[0] = Vec<T>::from_float(v[0]);
+  }
+};
+
+// float_tpu's tap rule, as the kernels apply it.  float_tpu converts
+// floor(f) of a source coordinate to an integer tap with astype(int32)
+// (float_torch/ops/warp.py::tap_floor): NaN becomes 0, far and infinite
+// values saturate.  So a NaN coordinate has in-image taps with NaN
+// weights, and every tap weight of its pixel is a product with a NaN
+// (even where the other axis weighs 0): the pixel is NaN in every
+// channel.  Any other coordinate's taps lie in the image exactly where the
+// float tests of floor(f) + d say so.  So the kernels test taps in float
+// and write NaN for a pixel with a NaN coordinate, reading no tap for it.
+__device__ __forceinline__ bool nan_pixel(float fx, float fy) {
+  return fx != fx || fy != fy;
+}
+
+__device__ __forceinline__ float nan_value() {
+  return __int_as_float(0x7fc00000);
+}
 
 // ((g + 1) * size - 1) * 0.5, rounded op by op like the plain version.
 __device__ __forceinline__ float source_coord(float g, int size) {
@@ -231,7 +267,8 @@ __host__ __device__ __forceinline__ size_t grid_bytes(int tile_h, int tile_w,
 // ((frame, pixel) order, asynchronous copies), reduces their in-image tap
 // rows and columns (the footprint), and fits them to the cap (tile_h /
 // tile_w + 2 halo + 1): the window to stage.  A coordinate that is NaN,
-// infinite or far off fails the float tests and never becomes an index.
+// infinite or far off fails the float tests and never becomes an index
+// (a NaN one's pixel is NaN and reads no tap: nan_pixel).
 // Ends with the grid tile in shared memory, visible to the whole block.
 __device__ __forceinline__ Window stage_grid(const float2* __restrict__ grid,
                                              float2* s_grid, const Tile& t,
@@ -319,11 +356,13 @@ __device__ __forceinline__ void stage_window(const T* __restrict__ feat,
 
 // Bilinear taps of one output pixel: the float-tested validity of each of
 // the 4 taps (dy, dx) in (0,0), (0,1), (1,0), (1,1) order, its weight
-// wy * wx rounded like the plain version, and its integer row/column.
+// wy * wx rounded like the plain version, and its integer row/column;
+// ``nan``: a coordinate is NaN, so the pixel is NaN (nan_pixel).
 struct Taps {
   bool valid[4];
   float w[4];
   int iy[4], ix[4];
+  bool nan;
 };
 
 __device__ __forceinline__ Taps pixel_taps(float2 g, int H, int W) {
@@ -337,6 +376,7 @@ __device__ __forceinline__ Taps pixel_taps(float2 g, int H, int W) {
   const float wx[2] = {__fsub_rn(1.0f, tx), tx};
   const float wy[2] = {__fsub_rn(1.0f, ty), ty};
   Taps t;
+  t.nan = nan_pixel(fx, fy);
 #pragma unroll
   for (int dy = 0; dy < 2; ++dy) {
     const float yy = y0 + static_cast<float>(dy);

@@ -84,14 +84,16 @@ __device__ __noinline__ float4 contract_global(const T* __restrict__ px,
 
 // One output pixel of one frame, any grid entry: each valid tap reads its
 // contracted map pixel from the window, or contracts it from device memory
-// when it lies outside.
+// when it lies outside; a pixel with a NaN coordinate is NaN (nan_pixel).
 template <typename T>
 __device__ __forceinline__ float4 warp_pixel(const T* __restrict__ feat,
                                              const float* w_s,
                                              const float4* win, Window box,
                                              float2 g, int H, int W, int C) {
   const Taps tp = pixel_taps(g, H, W);
-  float rgb[3] = {0.0f, 0.0f, 0.0f};
+  // 0, or NaN for a NaN coordinate (its taps all fail their float tests)
+  const float rgb0 = tp.nan ? warp::nan_value() : 0.0f;
+  float rgb[3] = {rgb0, rgb0, rgb0};
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     if (!tp.valid[k]) continue;
@@ -141,7 +143,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   __syncthreads();
 
   // the top-left taps whose 2x2 square lies in the window (float bounds:
-  // a NaN or far-off coordinate fails them)
+  // a NaN or far-off coordinate fails them and takes warp_pixel)
   const float x_lo = static_cast<float>(box.x0);
   const float x_hi = static_cast<float>(box.x0 + box.w - 2);
   const float y_lo = static_cast<float>(box.y0);

@@ -53,7 +53,8 @@
 //
 // Both round every sum op by op (no FMA contraction) in the plain PyTorch
 // version's order, so they agree with it bit for bit up to the final
-// rounding to the feature dtype.
+// rounding to the feature dtype.  A pixel with a NaN grid coordinate is
+// NaN in every channel, as in float_tpu (warp_common.cuh, nan_pixel).
 
 #include "warp_common.cuh"
 
@@ -61,7 +62,10 @@ namespace {
 
 using warp::kSmemLimit;
 using warp::kThreads;
+using warp::nan_pixel;
+using warp::nan_value;
 using warp::pixel_taps;
+using warp::Scalar;
 using warp::source_coord;
 using warp::Taps;
 using warp::Tile;
@@ -73,24 +77,6 @@ using warp::stage_grid;
 using warp::stage_window;
 using warp::Swizzle;
 using warp::window_bytes;
-
-__device__ __forceinline__ float widen(float v) { return v; }
-__device__ __forceinline__ float widen(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// One channel per load and store: Vec's interface for a C that is not a
-// whole number of 16-byte vectors.
-template <typename T>
-struct Scalar {
-  static constexpr int N = 1;
-  __device__ __forceinline__ static void load(const T* p, float* v) {
-    v[0] = widen(p[0]);
-  }
-  __device__ __forceinline__ static void store(T* p, const float* v) {
-    p[0] = Vec<T>::from_float(v[0]);
-  }
-};
 
 // The first version: one thread per (pixel, L::N channels: a 16-byte
 // vector, or one channel for Scalar), the 4 taps gathered from device
@@ -115,7 +101,7 @@ __global__ void __launch_bounds__(kThreads)
   const float fy = source_coord(g.y, H);
   // floorf, not an int cast: negative coordinates must round down.
   // Tap validity is tested in float, so a far-off or NaN coordinate
-  // never becomes an index.
+  // never becomes an index (a NaN one's pixel is NaN: nan_pixel).
   const float x0 = floorf(fx);
   const float y0 = floorf(fy);
   const float tx = __fsub_rn(fx, x0);
@@ -123,9 +109,11 @@ __global__ void __launch_bounds__(kThreads)
   const float wx[2] = {__fsub_rn(1.0f, tx), tx};
   const float wy[2] = {__fsub_rn(1.0f, ty), ty};
 
+  // 0, or NaN for a NaN coordinate (its taps all fail their float tests)
+  const float acc0 = nan_pixel(fx, fy) ? nan_value() : 0.0f;
   float acc[V];
 #pragma unroll
-  for (int i = 0; i < V; ++i) acc[i] = 0.0f;
+  for (int i = 0; i < V; ++i) acc[i] = acc0;
 
 #pragma unroll
   for (int dy = 0; dy < 2; ++dy) {
@@ -187,10 +175,12 @@ __global__ void __launch_bounds__(kThreads)
       for (int k = 0; k < 4; ++k) {
         if (!tp.valid[k]) {
           if (k == 0) {
+            // 0, or NaN for a NaN coordinate (its taps all fail)
+            const float acc0 = tp.nan ? nan_value() : 0.0f;
 #pragma unroll
             for (int u = 0; u < VPT; ++u) {
 #pragma unroll
-              for (int j = 0; j < V; ++j) acc[u][j] = 0.0f;
+              for (int j = 0; j < V; ++j) acc[u][j] = acc0;
             }
           }
           continue;

@@ -46,35 +46,55 @@ def identity_grid(size: int, device=None) -> torch.Tensor:
     return torch.from_numpy(_identity_grid_np(size)).to(device)
 
 
+_TAP_LIMIT = float(2 ** 30)
+
+
+def tap_floor(f: torch.Tensor) -> tuple:
+    """(i0, t): the top-left tap of source coordinate ``f`` as an int64
+    and the fraction ``f - floor(f)``.  The integer is ``floor(f)``
+    converted as float_tpu's ``astype(int32)`` converts it on XLA: NaN
+    becomes 0, infinite and far values saturate (here at +-2^30, where
+    every tap lies outside the image either way).  So a NaN coordinate
+    has in-image taps whose weights are NaN, as in the reference."""
+    f0 = torch.floor(f)
+    i0 = torch.nan_to_num(f0, nan=0.0, posinf=_TAP_LIMIT, neginf=-_TAP_LIMIT)
+    return i0.clamp(-_TAP_LIMIT, _TAP_LIMIT).long(), f - f0
+
+
 def _warp_f32(feat: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """feat (1 or B, H, W, C), grid (B, Ho, Wo, 2) -> (B, Ho, Wo, C) f32 sums
     of the four taps, each product and sum rounded in f32 in this order
-    (the CUDA kernels round the same way)."""
+    (the CUDA kernels round the same way).
+
+    Each axis weighs a tap outside the image 0 (float_tpu's
+    ``_axis_weights``) and a tap's weight is the product of its two axes'
+    weights, so a NaN coordinate (tap_floor: in-image taps, NaN weights)
+    makes every channel of its pixel NaN, as in float_tpu."""
     bf, h, w, c = feat.shape
     b = grid.shape[0]
     f = feat.float().reshape(bf * h * w, c)
-    gx = grid[..., 0].float()
-    gy = grid[..., 1].float()
-    fx = ((gx + 1.0) * w - 1.0) * 0.5
-    fy = ((gy + 1.0) * h - 1.0) * 0.5
-    x0 = torch.floor(fx)
-    y0 = torch.floor(fy)
-    tx = fx - x0
-    ty = fy - y0
+    fx = ((grid[..., 0].float() + 1.0) * w - 1.0) * 0.5
+    fy = ((grid[..., 1].float() + 1.0) * h - 1.0) * 0.5
+    x0, tx = tap_floor(fx)
+    y0, ty = tap_floor(fy)
     base = None
     if bf > 1:
         base = (torch.arange(b, device=grid.device) * (h * w))[:, None, None]
+    xs = []
+    for dx, wx in ((0, 1.0 - tx), (1, tx)):
+        xx = x0 + dx
+        vx = (xx >= 0) & (xx < w)
+        xs.append((xx, vx, torch.where(vx, wx, 0.0)))
     out = None
     for dy, wy in ((0, 1.0 - ty), (1, ty)):
         yy = y0 + dy
-        for dx, wx in ((0, 1.0 - tx), (1, tx)):
-            xx = x0 + dx
-            valid = (yy >= 0) & (yy < h) & (xx >= 0) & (xx < w)
-            idx = torch.where(valid, yy * w + xx, 0.0).long()
+        vy = (yy >= 0) & (yy < h)
+        wy = torch.where(vy, wy, 0.0)
+        for xx, vx, wx in xs:
+            idx = torch.where(vy & vx, yy * w + xx, 0)
             if base is not None:
                 idx = idx + base
-            wgt = torch.where(valid, wy * wx, 0.0)
-            term = f[idx] * wgt[..., None]
+            term = f[idx] * (wy * wx)[..., None]
             out = term if out is None else out + term
     return out
 

@@ -142,10 +142,13 @@ def test_planners_refuse_partial_vectors():
         plan_rgb(4, 64, 64, 6, 4)
 
 
-def test_plain_warps_give_zero_for_nonfinite_coordinates():
-    """The kernels follow the plain versions on NaN and infinite grid
-    entries (held on the card by chip_smoke.py): every tap fails its
-    float test and the output pixel is 0."""
+def test_plain_warps_give_nan_for_nan_coordinates():
+    """The plain warps follow float_tpu on NaN and infinite grid entries
+    (tests/test_torch_nonfinite_grid.py holds them to float_tpu itself;
+    the kernels follow them on the card, held by chip_smoke.py): a NaN
+    coordinate becomes tap 0 with a NaN weight, so its pixel is NaN in
+    every channel; an infinite one has no tap in the image, so a pixel
+    with infinite entries only is 0."""
     rng = np.random.default_rng(11)
     feat = torch.from_numpy(randn(rng, 1, 16, 16, 8))
     grid = make_grid(rng, 3, 16, 16, 2.0)
@@ -154,9 +157,22 @@ def test_plain_warps_give_zero_for_nonfinite_coordinates():
         rng.integers(0, 3, int(bad.sum()))]
     grid_t = torch.from_numpy(grid)
     wk = torch.from_numpy(randn(rng, 3, 8))
+    nan_px = torch.from_numpy(np.isnan(grid).any(-1))
+    inf_px = torch.from_numpy(bad) & ~nan_px
+    assert nan_px.any() and inf_px.any()
     for out in (warp_shared_ref(feat, grid_t), warp_rgb_ref(feat, grid_t, wk)):
-        assert torch.isfinite(out).all()
-        assert (out[torch.from_numpy(bad)] == 0).all()
+        assert out.isnan().all(-1)[nan_px].all()
+        assert torch.isfinite(out[~nan_px]).all()
+        assert (out[inf_px] == 0).all()
+
+
+def nan_aware_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max|got - want| off the NaN elements, which must be the same in
+    both (inf where they are not)."""
+    if not torch.equal(got.isnan(), want.isnan()):
+        return math.inf
+    ok = ~want.isnan()
+    return max_err(got[ok], want[ok]) if ok.any() else 0.0
 
 
 # --- the plain warps against the TPU kernels on the mixed grid --------------
@@ -250,9 +266,11 @@ def test_staged_kernels_match_plain_on_card(cuda_device, dtype, kind, size,
     out, rgb = warp_shared(feat, grid), warp_rgb(feat, grid, wk)
     assert LAUNCHES["warp_shared"] == before.get("warp_shared", 0) + 1
     assert LAUNCHES["warp_rgb"] == before.get("warp_rgb", 0) + 1
-    # K1 rounds in the plain version's order: bit for bit
-    assert max_err(out, warp_shared_ref(feat, grid)) == 0.0
+    # K1 rounds in the plain version's order: bit for bit, NaN positions
+    # (a NaN grid coordinate) equal
+    assert nan_aware_err(out, warp_shared_ref(feat, grid)) == 0.0
     # K2 contracts with FMAs in another order than the plain matmul
     tol = (2.0 ** -7 if dtype == torch.bfloat16 else 1e-5) \
         * feat.float().abs().max().item() * wk.abs().sum(1).max().item()
-    assert max_err(rgb, warp_rgb_ref(feat, grid, wk)) <= tol
+    assert nan_aware_err(rgb, warp_rgb_ref(feat, grid, wk)) <= tol
+    assert out.isnan().any() == (kind == "nonfinite")
