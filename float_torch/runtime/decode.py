@@ -20,6 +20,10 @@ On a CUDA device the host loops overlap the copy of chunk c with the
 compute of chunk c+1: the copy runs on a side stream into pinned memory,
 ordered after chunk c by the stream's wait, and the host blocks only on
 the chunk it hands out.
+
+Spans (``utils.profiling``): ``decode.chunk`` around each chunk's
+dispatch, ``wire.pin`` around a copy's pinned allocation and its queueing,
+``wire.wait`` around the host's wait for its bytes.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import torch
 
 from ..models.synthesis import RGB_IN_KERNEL, synthesis
 from ..ops import DISPATCH, Warps, rgb01_to_i420
+from ..utils.profiling import span
 
 CL = torch.channels_last
 
@@ -165,10 +170,11 @@ def decode_latents(synthesis_params, s_r, feats, r_d, *, size: int,
     fn = chunk_fn or decode_chunk
     lo = 0
     for ci, sz in enumerate(sizes):
-        chunk = fn(synthesis_params, wa[lo:lo + sz], feats_c, size,
-                   rgb_in_kernel=rgb_in_kernel, blur_kernel=blur_kernel)
-        n = min(sz, t_frames - lo)
-        frames[lo:lo + n] = chunk[:n]
+        with span("decode.chunk", index=ci, frames=sz):
+            chunk = fn(synthesis_params, wa[lo:lo + sz], feats_c, size,
+                       rgb_in_kernel=rgb_in_kernel, blur_kernel=blur_kernel)
+            n = min(sz, t_frames - lo)
+            frames[lo:lo + n] = chunk[:n]
         lo += sz
         if frame_callback is not None:
             frame_callback(ci, len(sizes))
@@ -185,18 +191,21 @@ class _HostCopy:
         if dev.device.type != "cuda":
             self.host = dev
             return
-        self.host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
-        stream.wait_stream(torch.cuda.current_stream(dev.device))
-        with torch.cuda.stream(stream):
-            self.host.copy_(dev, non_blocking=True)
-        dev.record_stream(stream)
-        self.event = torch.cuda.Event()
-        self.event.record(stream)
+        with span("wire.pin", bytes=dev.nbytes):
+            self.host = torch.empty(dev.shape, dtype=dev.dtype,
+                                    pin_memory=True)
+            stream.wait_stream(torch.cuda.current_stream(dev.device))
+            with torch.cuda.stream(stream):
+                self.host.copy_(dev, non_blocking=True)
+            dev.record_stream(stream)
+            self.event = torch.cuda.Event()
+            self.event.record(stream)
 
     def numpy(self) -> np.ndarray:
         """Block until the bytes arrived; the host array."""
         if self.event is not None:
-            self.event.synchronize()
+            with span("wire.wait"):
+                self.event.synchronize()
         return self.host.numpy()
 
 
@@ -269,12 +278,15 @@ def decode_latents_stream(synthesis_params, s_r, feats, latent_iter, *,
                for f in feats]
     stream = _copy_stream(s32.device)
     fn = chunk_fn or decode_chunk
-    n_done = 0
+    n_sent = n_done = 0
 
     def dispatch(rows, start, n_valid):
-        wa_c = (s32 + rows.float()).to(compute_dtype)
-        dev = fn(synthesis_params, wa_c, feats_c, size, out_u8=out_u8,
-                 blur_kernel=blur_kernel)
+        nonlocal n_sent
+        with span("decode.chunk", index=n_sent, frames=rows.shape[0]):
+            wa_c = (s32 + rows.float()).to(compute_dtype)
+            dev = fn(synthesis_params, wa_c, feats_c, size, out_u8=out_u8,
+                     blur_kernel=blur_kernel)
+        n_sent += 1
         return start, n_valid, _HostCopy(dev, stream)
 
     def take(item):
@@ -363,8 +375,9 @@ def decode_clips_to_host(synthesis_params, clips, *, size: int,
         if stream is None:
             stream = _copy_stream(wa.device)
         for ci, sz in enumerate(sizes):
-            dev = fn(synthesis_params, wa[ci * fb:ci * fb + sz], feats_c,
-                     size, out_u8=uint8_transfer, blur_kernel=blur_kernel)
+            with span("decode.chunk", index=ci, frames=sz):
+                dev = fn(synthesis_params, wa[ci * fb:ci * fb + sz], feats_c,
+                         size, out_u8=uint8_transfer, blur_kernel=blur_kernel)
             copy = _HostCopy(dev, stream)
             if pending is not None:
                 drain(*pending)

@@ -51,6 +51,7 @@ from ..models.synthesis import direction
 from ..models.wav2vec2 import predict_emotion as _predict_emotion
 from ..parallel.mesh import batch_split, gather
 from ..parallel.sharding import shard_fmt, shard_wav2vec2
+from ..utils.profiling import resumed, span
 from .decode import (FrameParallel, decode_clips_to_host, decode_latents,
                      decode_latents_stream, decode_latents_to_host,
                      stream_chunk_count)
@@ -222,10 +223,12 @@ class FloatPipeline:
         return self._encode_with(self.params, self._tensor(img))
 
     def _encode_with(self, weights, img):
-        s_r, lam, feats = _encode_image(weights["encoder"], img,
-                                        self.cfg.input_size)
-        return s_r, lam, feats, direction(weights["synthesis"]["direction"],
-                                          lam)
+        with span("encode_image"):
+            s_r, lam, feats = _encode_image(weights["encoder"], img,
+                                            self.cfg.input_size)
+            with span("direction_qr"):
+                r_s = direction(weights["synthesis"]["direction"], lam)
+        return s_r, lam, feats, r_s
 
     def prepare_source(self, img) -> SourceLatents:
         """Encode a source image once for reuse across clips: pass the
@@ -246,8 +249,10 @@ class FloatPipeline:
     @torch.inference_mode()
     def encode_audio(self, wave, seq_len: int) -> torch.Tensor:
         """wave (B, N) normalised -> wa (B, seq_len, dim_w)."""
-        return _encode_audio(self.params["audio_encoder"], self._tensor(wave),
-                             seq_len, self.cfg, self.w2v_cfg)
+        with span("encode_audio", frames=seq_len):
+            return _encode_audio(self.params["audio_encoder"],
+                                 self._tensor(wave), seq_len, self.cfg,
+                                 self.w2v_cfg)
 
     @torch.inference_mode()
     def predict_emotion(self, wave) -> torch.Tensor:
@@ -279,11 +284,12 @@ class FloatPipeline:
     def emotion_latent(self, wave, emotion: str = "none") -> torch.Tensor:
         """we (B, 1, E): one-hot for a named emotion, else predicted from
         the audio (reference FLOAT.py:196-200)."""
-        if emotion and emotion.lower() in EMOTION_LABELS:
-            return one_hot_emotion(emotion, self.cfg.dim_e, self.device)
-        if wave is None:
-            raise ValueError("emotion='none' requires audio")
-        return self.predict_emotion(wave)[:, None, :]
+        with span("emotion"):
+            if emotion and emotion.lower() in EMOTION_LABELS:
+                return one_hot_emotion(emotion, self.cfg.dim_e, self.device)
+            if wave is None:
+                raise ValueError("emotion='none' requires audio")
+            return self.predict_emotion(wave)[:, None, :]
 
     def _sampler_args(self, r_s, wa, we, *, seed=None, a_cfg_scale=None,
                       e_cfg_scale=None, r_cfg_scale=None, nfe=None,
@@ -380,15 +386,21 @@ class FloatPipeline:
         sample stages and each decode chunk.  ``source=`` (from
         ``prepare_source``) reuses a pre-encoded image; ``img`` may then be
         None.  ``fps`` retimes the output for this clip; the sampler's
-        chunk span stays on the pipeline config, as in the reference."""
-        wave = self._tensor(wave)
-        s_r, _lam, feats, r_s = self._resolve_source(img, source, progress)
-        _t, wa, we = self._conditions(wave, emotion, fps, progress)
-        r_d = self.sample(r_s, wa, we, seed=seed, a_cfg_scale=a_cfg_scale,
-                          e_cfg_scale=e_cfg_scale, r_cfg_scale=r_cfg_scale,
-                          nfe=nfe, ode_method=ode_method)
-        _report(progress, "sample")
-        return self.decode(s_r, feats, r_d, progress=progress)
+        chunk span stays on the pipeline config, as in the reference.
+
+        The call is a request's root span, ``generate``."""
+        with span("generate"):
+            wave = self._tensor(wave)
+            s_r, _lam, feats, r_s = self._resolve_source(img, source,
+                                                         progress)
+            _t, wa, we = self._conditions(wave, emotion, fps, progress)
+            r_d = self.sample(r_s, wa, we, seed=seed,
+                              a_cfg_scale=a_cfg_scale,
+                              e_cfg_scale=e_cfg_scale,
+                              r_cfg_scale=r_cfg_scale, nfe=nfe,
+                              ode_method=ode_method)
+            _report(progress, "sample")
+            return self.decode(s_r, feats, r_d, progress=progress)
 
     @torch.inference_mode()
     def generate_stream(self, img, wave, *, emotion: str = "none",
@@ -413,34 +425,44 @@ class FloatPipeline:
 
         The sampler runs chunk by chunk, interleaved with decode dispatch,
         drawing the same noise from the same generator in the same order
-        as ``sample``: the stream's frames are ``generate``'s."""
+        as ``sample``: the stream's frames are ``generate``'s.
+
+        The call up to its first chunk is a request's root span,
+        ``generate_stream``; the later chunks' spans keep its request id."""
         cfg = self.cfg
-        wave = self._tensor(wave)
-        s_r, _lam, feats, r_s = self._resolve_source(img, source, progress)
-        t_frames, wa, we = self._conditions(wave, emotion, fps, progress)
-        n_chunks = math.ceil(t_frames / cfg.num_frames_for_clip)
-        chunks = sample_motion_chunks(**self._sampler_args(
-            r_s, wa, we, seed=seed, a_cfg_scale=a_cfg_scale,
-            e_cfg_scale=e_cfg_scale, r_cfg_scale=r_cfg_scale, nfe=nfe,
-            ode_method=ode_method))
+        with span("generate_stream") as root:
+            wave = self._tensor(wave)
+            s_r, _lam, feats, r_s = self._resolve_source(img, source,
+                                                         progress)
+            t_frames, wa, we = self._conditions(wave, emotion, fps, progress)
+            n_chunks = math.ceil(t_frames / cfg.num_frames_for_clip)
+            chunks = sample_motion_chunks(**self._sampler_args(
+                r_s, wa, we, seed=seed, a_cfg_scale=a_cfg_scale,
+                e_cfg_scale=e_cfg_scale, r_cfg_scale=r_cfg_scale, nfe=nfe,
+                ode_method=ode_method))
 
-        def latent_pieces():
-            done = 0
-            for c, sample_t in enumerate(chunks):
-                take = min(cfg.num_frames_for_clip, t_frames - done)
-                done += take
-                _report(progress, "sample", c + 1, n_chunks)
-                yield sample_t[0, :take].float()
+            def latent_pieces():
+                done = 0
+                for c, sample_t in enumerate(chunks):
+                    take = min(cfg.num_frames_for_clip, t_frames - done)
+                    done += take
+                    _report(progress, "sample", c + 1, n_chunks)
+                    yield sample_t[0, :take].float()
 
-        n_dchunks = stream_chunk_count(t_frames, cfg.decode_batch,
-                                       first_chunk)
-        cb = None
-        if progress is not None:
-            cb = lambda i, n: progress("decode", i + 1, n_dchunks)  # noqa: E731
-        yield from decode_latents_stream(
-            self.syn_cast, s_r, feats, latent_pieces(),
-            uint8_transfer=uint8_transfer, frame_callback=cb,
-            first_chunk=first_chunk, emit=wire, **self._decode_args())
+            n_dchunks = stream_chunk_count(t_frames, cfg.decode_batch,
+                                           first_chunk)
+            cb = None
+            if progress is not None:
+                cb = lambda i, n: progress("decode", i + 1, n_dchunks)  # noqa: E731
+            stream = decode_latents_stream(
+                self.syn_cast, s_r, feats, latent_pieces(),
+                uint8_transfer=uint8_transfer, frame_callback=cb,
+                first_chunk=first_chunk, emit=wire, **self._decode_args())
+            first = next(stream, None)
+        if first is None:
+            return
+        yield first
+        yield from resumed(stream, root)
 
     def warmup(self, seconds: float = 2.0, first_chunk: int = 8) -> float:
         """Run the serving paths once before the first request: on the

@@ -18,6 +18,7 @@ import torch
 from ..config import FloatConfig
 from ..models.fmt import fmt_forward_cfg
 from ..ops import odeint_fixed
+from ..utils.profiling import span
 
 
 def pad_to_chunks(x, frames_per_clip: int, n_chunks: Optional[int] = None):
@@ -83,7 +84,8 @@ def sample_motion_chunks(fmt_params, r_s, wa, we, *, cfg: FloatConfig,
                          noise=None):
     """Yield the motion latents of each sampler chunk in order, each
     (B, clip, dim_w); the last one runs past T = wa.shape[1] on edge-padded
-    conditions.
+    conditions.  Each chunk's noise and integration are a ``sample.chunk``
+    span (``utils.profiling``), closed before the chunk is yielded.
 
     Chunk noise comes from ``generator`` (drawn in f32 on wa's device, one
     chunk after another just before that chunk is integrated, then cast to
@@ -112,17 +114,19 @@ def sample_motion_chunks(fmt_params, r_s, wa, we, *, cfg: FloatConfig,
 
     carry = sampler_init_carry(b, cfg, wa.dtype, wa.device)
     for c in range(n_chunks):
-        if noise is None:
-            x0 = torch.randn((b, clip, dim_w), generator=generator,
-                             dtype=torch.float32,
-                             device=wa.device).to(wa.dtype)
-        else:
-            x0 = noise[c]
-        sl = slice(c * clip, (c + 1) * clip)
-        sample_t, carry = sample_motion_chunk(
-            fmt_params, r_s, wa_p[:, sl], we_p[:, sl] if dynamic else we,
-            carry, x0, cfg=cfg, a_cfg_scale=a_s, e_cfg_scale=e_s,
-            r_cfg_scale=r_sc, nfe=nfe, ode_method=method, cfg_mode=cfg_mode)
+        with span("sample.chunk", index=c, frames=clip):
+            if noise is None:
+                x0 = torch.randn((b, clip, dim_w), generator=generator,
+                                 dtype=torch.float32,
+                                 device=wa.device).to(wa.dtype)
+            else:
+                x0 = noise[c]
+            sl = slice(c * clip, (c + 1) * clip)
+            sample_t, carry = sample_motion_chunk(
+                fmt_params, r_s, wa_p[:, sl], we_p[:, sl] if dynamic else we,
+                carry, x0, cfg=cfg, a_cfg_scale=a_s, e_cfg_scale=e_s,
+                r_cfg_scale=r_sc, nfe=nfe, ode_method=method,
+                cfg_mode=cfg_mode)
         yield sample_t
 
 

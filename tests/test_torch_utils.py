@@ -3,16 +3,14 @@ equal count for count (the TPU's mxu/vpu keys renamed matmul/other, the
 MFU taken against the H100's dense BF16 peak); the parameter counts of the
 port's pipeline equal float_tpu's over its pytree (config 1 counted from
 shapes only: a meta-device skeleton on one side, shape structs on the
-other); the Profiler, StageTimes and ProgressCallback cases of
-tests/test_workflow.py; the logger."""
+other); the ProgressCallback case of tests/test_workflow.py; the
+logger.  The span recorder of utils/profiling.py: test_torch_tracing.py."""
 import dataclasses
 import logging
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 import pytest
-import torch
 
 from float_tpu import config as j_config
 from float_tpu.models import init as j_init
@@ -24,8 +22,7 @@ from float_torch.runtime.pipeline import build_synthetic_pipeline
 from float_torch.utils import flops as t_flops
 from float_torch.utils import inspect as t_inspect
 from float_torch.utils.logging import get_logger, initialize_logger
-from float_torch.utils.profiling import (Profiler, ProgressCallback,
-                                         StageTimes, device_sync)
+from float_torch.utils.profiling import ProgressCallback
 from torch_parity import TINY, TINY_SER, TINY_W2V
 
 PT = {"config1": t_config.FloatConfig(),
@@ -132,42 +129,6 @@ def test_count_params_tiny_pipeline():
                                        (999, "999"), (0, "N/A")])
 def test_num2str(num, want):
     assert t_inspect.num2str(num) == want == j_inspect.num2str(num)
-
-
-def test_profiler_stages():
-    """tests/test_workflow.py's case on the port: an unsynchronised and a
-    synchronised stage around a CPU encode."""
-    pipe = build_synthetic_pipeline(PT["tiny"], PT_W2V, PT_SER, device="cpu")
-    img = torch.from_numpy(np.random.default_rng(0).random(
-        (1, 3, 64, 64)).astype(np.float32) * 2 - 1)
-    prof = Profiler()
-    with prof.stage("encode", sync_on=None):
-        out = pipe.encode_image(img)
-    with prof.stage("encode_synced", sync_on=out[0]):
-        out = pipe.encode_image(img)
-    s = prof.stages.summary()
-    assert "encode" in s and "encode_synced" in s and s["encode_synced"] > 0
-    assert "encode" in prof.stages.report()
-    device_sync({"a": [out[0]]})             # nested, CPU: returns
-    device_sync([])
-    with Profiler().trace():                 # no trace_dir: a no-op
-        pass
-
-
-def test_profiler_trace_writes(tmp_path):
-    prof = Profiler(trace_dir=str(tmp_path))
-    with prof.trace():
-        torch.ones(8).sum()
-    assert list(tmp_path.iterdir())
-
-
-def test_stage_times_summary():
-    st = StageTimes()
-    st.add("a", 0.1)
-    st.add("a", 0.3)
-    st.add("b", 0.002)
-    assert st.summary() == pytest.approx({"a": 0.2, "b": 0.002})
-    assert st.report().splitlines() == ["a: 200.0 ms", "b: 2.0 ms"]
 
 
 def test_progress_callback():
