@@ -21,33 +21,37 @@ from ..parallel.sharding import row_parallel
 
 
 @functools.lru_cache(maxsize=None)
-def _sinusoid_table_np(n_position: int, d_hid: int) -> np.ndarray:
-    """Sinusoidal position table (reference FMT.py:22-40)."""
+def sinusoid_pos_embed(n_position: int, d_hid: int, device=None):
+    """Sinusoidal position table (reference FMT.py:22-40), float32 on
+    ``device``, made once per shape and device and shared: callers must
+    not write to it.  A table kept on the device is what lets a CUDA
+    graph capture the forward (a host copy cannot be captured)."""
     pos = np.arange(n_position)[:, None]
     idx = np.arange(d_hid)[None, :]
     angle = pos / np.power(10000.0, 2 * (idx // 2) / d_hid)
     table = angle.copy()
     table[:, 0::2] = np.sin(angle[:, 0::2])
     table[:, 1::2] = np.cos(angle[:, 1::2])
-    return table.astype(np.float32)
-
-
-def sinusoid_pos_embed(n_position: int, d_hid: int, device=None):
-    return torch.from_numpy(_sinusoid_table_np(n_position, d_hid)).to(device)
+    return _shared(table, device)
 
 
 @functools.lru_cache(maxsize=None)
-def _alignment_bias_np(t: int, s: int, expansion: int) -> np.ndarray:
+def alignment_bias(t: int, s: int, expansion: int, device=None):
+    """Additive attention bias: 0 inside the +-expansion band, -1e9 outside
+    (reference FMT.py:15-19; -1e9 rather than -inf keeps rows finite),
+    float32 on ``device``, made once per shape and device and shared as
+    ``sinusoid_pos_embed`` is."""
     blocked = np.ones((t, s), dtype=bool)
     for i in range(t):
         blocked[i, max(0, i - expansion): i + expansion + 1] = False
-    return np.where(blocked, -1e9, 0.0).astype(np.float32)
+    return _shared(np.where(blocked, -1e9, 0.0), device)
 
 
-def alignment_bias(t: int, s: int, expansion: int, device=None):
-    """Additive attention bias: 0 inside the +-expansion band, -1e9 outside
-    (reference FMT.py:15-19; -1e9 rather than -inf keeps rows finite)."""
-    return torch.from_numpy(_alignment_bias_np(t, s, expansion)).to(device)
+def _shared(table: np.ndarray, device) -> torch.Tensor:
+    """``table`` as float32 on ``device``, made outside inference mode so
+    that every mode can read the shared tensor."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(table.astype(np.float32)).to(device)
 
 
 def _linear(p, x):
@@ -175,7 +179,8 @@ def fmt_forward_cfg(params, t, x, wa, wr, we, prev_x, prev_wa, prev_we, *,
     """Classifier-free vector field (reference FMT.py:342-401): the CFG
     variants ride the batch, 3-way [uncond(wr) | all_cond | audio_only]
     combined as uncond + a (audio_only - uncond) + e (all - audio_only);
-    4-way prepends truly_uncond with r_cfg."""
+    4-way prepends truly_uncond with r_cfg.  The scales are numbers, or
+    0-dim tensors (a CUDA graph's inputs) given with ``cfg_mode``."""
     kw = dict(depth=depth, num_heads=num_heads,
               attention_window=attention_window)
     if cfg_mode is None:
@@ -205,9 +210,20 @@ def fmt_forward_cfg(params, t, x, wa, wr, we, prev_x, prev_wa, prev_we, *,
                       torch.cat([prev_wa] * n_way), pwe_c, **kw)
     if four:
         truly_uncond, uncond, all_cond, audio_only = out.chunk(4)
-        return (truly_uncond + r_cfg_scale * (uncond - truly_uncond)
-                + a_cfg_scale * (audio_only - uncond)
-                + e_cfg_scale * (all_cond - audio_only))
+        return (truly_uncond + _times(r_cfg_scale, uncond - truly_uncond)
+                + _times(a_cfg_scale, audio_only - uncond)
+                + _times(e_cfg_scale, all_cond - audio_only))
     uncond, all_cond, audio_only = out.chunk(3)
-    return (uncond + a_cfg_scale * (audio_only - uncond)
-            + e_cfg_scale * (all_cond - audio_only))
+    return (uncond + _times(a_cfg_scale, audio_only - uncond)
+            + _times(e_cfg_scale, all_cond - audio_only))
+
+
+def _times(scale, d):
+    """``scale * d`` rounded as for a Python-number scale, which the
+    kernel takes in d's math dtype (float32 for a 16-bit d): a tensor
+    scale (a CUDA graph's input, float64) is cast to that dtype, and the
+    product of a 16-bit d is taken in it too."""
+    if isinstance(scale, torch.Tensor):
+        math = torch.promote_types(d.dtype, torch.float32)
+        return (scale.to(math) * d.to(math)).to(d.dtype)
+    return scale * d

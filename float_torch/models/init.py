@@ -246,9 +246,13 @@ class ParamTree(nn.Module):
     Parameters do not require grad: the pipeline only serves.
     ``tp_shards``: a layer's tensor-parallel slices, one dict a model rank
     (``parallel.sharding``); None for a layer held whole.
+    ``chunk_graphs``: the FMT's ``runtime.sampling.ChunkGraphs``, its
+    sampler chunks as CUDA graphs, made at the first chunk sampled on the
+    card; freed with the tree.
     """
 
     tp_shards = None
+    chunk_graphs = None
 
     def __init__(self, tree: dict):
         super().__init__()
