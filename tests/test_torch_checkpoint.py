@@ -30,14 +30,6 @@ from float_torch.models import init as t_init
 from torch_parity import TINY, TINY_SER, TINY_W2V
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def flatten(tree, prefix=""):
     out = {}
     for k, v in tree.items():

@@ -42,16 +42,6 @@ PT_W2V = t_config.Wav2Vec2Config(**dataclasses.asdict(TINY_W2V))
 PT_SER = t_config.Wav2Vec2Config(**dataclasses.asdict(TINY_SER))
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Tiny shapes gain nothing from torch's thread pool, whose spinning
-    threads oversubscribe the CPU under the suite's parallel workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 # ---------------------------------------------------------------------------
 # mesh
 # ---------------------------------------------------------------------------

@@ -59,14 +59,6 @@ FRAME_TOL = 1 / 255 + 1e-4      # one uint8 level, for float frames
 N_CHUNKS = 3                    # 1 s at 25 fps in 10-frame sampler chunks
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 @pytest.fixture(scope="module")
 def pipes():
     """(float_tpu's FloatPipe, the port's FloatPipe on the CPU) with the

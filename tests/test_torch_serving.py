@@ -19,17 +19,6 @@ from torch_parity import TINY, TINY_SER, TINY_W2V, randn
 U8_TOL = 1 / 255.0 + 1e-5      # one step of the uint8 wire
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tiny shapes gain nothing from torch's thread pool, whose
-    threads, one per core by default, spin between ops: under the suite's
-    parallel workers they oversubscribe the CPU and slow every file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _pipeline(cfg):
     """The tiny pipeline with 32 channels at every image level: these
     tests hold the port against itself, and the default map's 512-channel

@@ -31,17 +31,6 @@ from torch_parity import max_err, randn
 BF16_FLOOR = 6.3e-2      # tests/test_warp_v2_interpret.py's bf16 bound
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """These tiny shapes gain nothing from torch's thread pool, whose
-    threads, one per core by default, spin between ops: under the suite's
-    parallel workers they oversubscribe the CPU and slow every file."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _bf16(x):
     """A jnp bf16 array and the same values as a torch bf16 tensor."""
     j = jnp.asarray(x).astype(jnp.bfloat16)
