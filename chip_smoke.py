@@ -24,6 +24,11 @@ wrappers.  Phases:
    NaN and infinite entries (NaN at the same elements: a NaN coordinate
    makes its pixel NaN, as in float_tpu); timed at each level and batch
    beside its bound, and at 24 frames beside F.grid_sample;
+3b. K7 (``styled_tail``) at each of the 27 calls of a 24-frame bf16 decode
+   chunk of config 1 (the StyledConv tails and skip upsamplings) against
+   its plain version in f32, each timed beside its bytes bound and the
+   plain bf16 ops it replaces; every path below holds K7 to 27 launches
+   for each chunk's 7 warps;
 4. the port on the card against the port on the CPU at a tiny config in
    float32 (TF32 off), stage by stage;
 5. BASELINE config 1 end to end: 617.5 M synthetic parameters, a 512²
@@ -179,6 +184,17 @@ K5_LEVELS = ((128, 128), (256, 64), (512, 32))
 K5_BATCH = 16
 K5_KINDS = GRID_KINDS
 K6_STEPS = (64, 1024)
+# K7's calls in one decode chunk of config 1, (mode, output size, C):
+# conv1's plain tail, each level's up and plain StyledConv tails, and from
+# the second level on its ToRGB and ToFlow skip upsamplings: 27 calls.
+K7_CALLS = (("plain", 4, 512),) + tuple(
+    (m, s, c) for s, c in LEVELS for m in ("up", "plain")) + tuple(
+    (m, s, 3) for s, _ in LEVELS[1:] for m in ("rgb", "flow"))
+# f32 operations an output element of each mode computes: the up tail's
+# row sums (4 products, 3 sums) and the sum across rows (as many), the
+# demodulation, bias and leaky ReLU (3) and its gain; the skip's four
+# taps (a weight, a product and a sum each) and the biases around them.
+K7_OPS = {"up": 18, "plain": 4, "rgb": 16, "flow": 13}
 CUDA = "float_torch/kernels/csrc/"
 ROWS = {   # kernel-table rows: the name the wrapper counts launches under
     "K1": {"name": "warp_shared", "route": "cuda",
@@ -201,6 +217,9 @@ ROWS = {   # kernel-table rows: the name the wrapper counts launches under
     "K6": {"name": "fma_dtype", "route": "cuda",
            "source": CUDA + "fma_dtype.cu",
            "replaces": "experiments/vpu_dtype_bench.py:19"},
+    # no TPU kernel: float_tpu leaves the blur and its neighbours to XLA
+    "K7": {"name": "styled_tail", "route": "cuda",
+           "source": CUDA + "styled_tail.cu", "replaces": None},
 }
 NEW_KERNELS = ("warp_per_frame", "warp_rgb")
 # Tolerances.  K1, K3 and K5 round every product and sum in their plain
@@ -552,6 +571,108 @@ def phase_kernels(gen: torch.Generator, parent=None) -> dict:
         f"F.grid_sample {row.library_ms:.4f} ms, bound {bnd:.4f} ms, "
         f"{bnd / row.ms:.1%} of bound")
     return dict(row.json(), max_abs_err=max_err, levels=levels)
+
+
+def k7_case(gen: torch.Generator, mode: str, size: int, c: int, b: int,
+            dtype):
+    """One K7 call of ``K7_CALLS`` at random values: (the dispatcher's
+    call, the plain version's in ``dtype``, the plain version's in f32,
+    x).  The up tail reads x (b, c, size + 1, size + 1), the others x
+    (b, c, size, size); a skip (b, c, size / 2, size / 2); every map
+    channels_last on the card."""
+    from float_torch.ops.tails import (skip_tail, skip_tail_ref,
+                                             styled_tail, styled_tail_ref)
+
+    def rand(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    def cl(t):
+        return t.to(dtype).contiguous(memory_format=torch.channels_last)
+
+    n = size + (mode == "up")
+    x = cl(rand(b, c, n, n))
+    bias = rand(c, scale=0.5).to(dtype)
+    if mode in ("up", "plain"):
+        demod = torch.rand((b, c), generator=gen, device="cuda") + 0.5
+        pad = (1, 1) if mode == "up" else None
+        return (lambda: styled_tail(x, demod, bias, pad),
+                lambda: styled_tail_ref(x, demod, bias, pad),
+                lambda: styled_tail_ref(x.float(), demod, bias.float(), pad),
+                x)
+    skip = cl(rand(b, c, size // 2, size // 2))
+    act = rand(c, scale=0.5).to(dtype) if mode == "rgb" else None
+    act32 = None if act is None else act.float()
+    return (lambda: skip_tail(x, skip, bias, act),
+            lambda: skip_tail_ref(x, skip, bias, act),
+            lambda: skip_tail_ref(x.float(), skip.float(), bias.float(),
+                                  act32),
+            x)
+
+
+def k7_error(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor) -> float:
+    """K7's output against its plain version in f32, as a share of the
+    tolerance (at most 1 passes): f32 within 1e-5 x max|x| (sums in
+    another order); bf16 within one bf16 rounding of a value that close,
+    2^-8 of it.  inf where the shapes or the NaN elements differ; the
+    same infinity on both sides is no error."""
+    nan = want.isnan()
+    if got.shape != want.shape or not torch.equal(got.isnan(), nan):
+        return math.inf
+    got, want = got[~nan].float(), want[~nan]
+    if want.numel() == 0:
+        return 0.0
+    tol = 1e-5 * x[x.isfinite()].abs().max().float()
+    if x.dtype == torch.bfloat16:
+        tol = 2.0 ** -8 * (want.abs() + tol) + tol
+    diff = torch.where(got == want, 0.0, (got - want).abs())
+    return (diff / tol).max().item()
+
+
+def k7_bound(mode: str, size: int, c: int, b: int, esize: int):
+    """Bound of one K7 call: x and the skip read once, the output written
+    once (the (B, C) demodulation and the biases are counted too)."""
+    n_out = b * size * size * c
+    n_in = b * (size + (mode == "up")) ** 2 * c
+    n_skip = b * (size // 2) ** 2 * c if mode in ("rgb", "flow") else 0
+    n_bytes = ((n_in + n_out + n_skip) * esize + b * c * 4 + 2 * c * esize)
+    return bound(n_bytes, n_out * K7_OPS[mode])
+
+
+def phase_styled_tail(gen: torch.Generator) -> dict:
+    """K7 at every call of a 24-frame bf16 decode chunk of config 1 against
+    its plain version in f32 (``k7_error``), then its row: the
+    chunk's 27 calls, each timed beside its bound and the plain ops in
+    bf16 (the sequence K7 replaces)."""
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    row, calls, max_err = Row(), [], 0.0
+    try:
+        for mode, size, c in K7_CALLS:
+            k7, plain, plain32, x = k7_case(gen, mode, size, c, 24,
+                                            torch.bfloat16)
+            err = k7_error(k7(), plain32(), x)
+            max_err = max(max_err, err)
+            check(err <= 1, f"styled_tail {mode} {size}^2 C={c}: {err:.3g} "
+                  f"of its tolerance from the plain version in f32")
+            bnd = k7_bound(mode, size, c, 24, x.element_size())
+            iters = 200 if x.numel() * 2 < 64 << 20 else 50
+            ms = graph_ms(k7, iters=iters)
+            p = event_ms(plain, iters=5)
+            row.add(ms, p, 0.0, bnd)
+            calls.append({"mode": mode, "size": size, "c": c, "ms": ms,
+                          "plain_ms": p, "bound_ms": bnd[0],
+                          "bound_by": bnd[1]})
+            log(f"[kernel] styled_tail {mode} {size}^2 C={c} B=24 bf16: "
+                f"kernel {ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+                f"{bnd[0] / ms:.1%} of bound; plain {p:.4f} ms; error "
+                f"{err:.3g} of its tolerance")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    bnd = sum(row.bound.values())
+    log(f"[kernel] one 24-frame chunk's {len(K7_CALLS)} styled tails: kernel "
+        f"{row.ms:.4f} ms, plain {row.plain_ms:.4f} ms, bound {bnd:.4f} ms, "
+        f"{bnd / row.ms:.1%} of bound")
+    return dict(row.json(), max_err=max_err, calls=calls)
 
 
 def phase_kernel_variants(gen: torch.Generator, parent=None) -> dict:
@@ -958,6 +1079,9 @@ def phase_config1() -> dict:
     check(launches_k4 == n_chunks,
           f"warp_shared launched {launches_k4} times at K4's shapes, "
           f"expected {n_chunks}")
+    check(launches.get("styled_tail", 0) == len(K7_CALLS) * n_chunks,
+          f"styled_tail launched {launches} times in the timed run, "
+          f"expected {len(K7_CALLS) * n_chunks}")
     check(not any(launches.get(k, 0) for k in NEW_KERNELS),
           f"the default generate launched {launches}, expected only "
           f"warp_shared")
@@ -1001,6 +1125,15 @@ def u8_levels(a, b) -> tuple:
     return int(d.max().item()), d.float().mean().item()
 
 
+def k7_launches_fit(launches: dict) -> bool:
+    """Each 512² decode chunk warps 7 times (K1 or K3, K2 for the last
+    level with ``rgb_in_kernel``) and launches K7 27 times."""
+    warps = sum(launches.get(k, 0)
+                for k in ("warp_shared", "warp_per_frame", "warp_rgb"))
+    return launches.get("styled_tail", 0) * len(LEVELS) \
+        == warps * len(K7_CALLS)
+
+
 def run_path(name: str, fn, want: dict, want_k4: int):
     """Run ``fn`` with every launch count at 0 before it; check the counts
     read right after against ``want`` (kernels not named must be 0) and
@@ -1015,6 +1148,11 @@ def run_path(name: str, fn, want: dict, want_k4: int):
     got = {k: v for k, v in LAUNCHES.items() if v}
     k4 = k4_launches(LAUNCH_SHAPES)
     PATHS[name] = dict(got, K4=k4)
+    check(k7_launches_fit(got),
+          f"{name}: {got.get('styled_tail', 0)} styled_tail launches, "
+          f"expected {len(K7_CALLS)} for each decode chunk's "
+          f"{len(LEVELS)} warps")
+    got.pop("styled_tail", None)
     check(got == {k: v for k, v in want.items() if v},
           f"{name}: launches {got}, expected {want}")
     check(k4 == want_k4,
@@ -2153,6 +2291,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = {"K1": phase_kernels(gen, parent)}
+    rows["K7"] = phase_styled_tail(gen)
     rows.update(phase_kernel_variants(gen, parent))
     t0 = time.perf_counter()
     rows.update(phase_experiments(gen, parent))
@@ -2180,12 +2319,14 @@ def main() -> int:
                 "K4": c1["launches_k4"],
                 "K5": PATHS["experiment warp_selection_matmul"].get(
                     "warp_window", 0),
-                "K6": PATHS["experiment fma_dtype_bench"].get("fma_dtype", 0)}
+                "K6": PATHS["experiment fma_dtype_bench"].get("fma_dtype", 0),
+                "K7": c1["launches"].get("styled_tail", 0)}
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed")
         return 1
     names = {"K1": "warp_shared", "K2": "warp_rgb", "K3": "warp_per_frame",
-             "K4": "K4", "K5": "warp_window", "K6": "fma_dtype"}
+             "K4": "K4", "K5": "warp_window", "K6": "fma_dtype",
+             "K7": "styled_tail"}
     kernels = [dict(ROWS[k], launches=launches[k], **rows[k],
                     launches_by_path={p: c.get(names[k], 0)
                                       for p, c in PATHS.items()})

@@ -21,6 +21,11 @@ flows through ``warps`` (``ops.warp.DISPATCH`` by default):
 - any other map is warped frame by frame (``warps.per_frame``, K3): a
   one-frame decode chunk, or maps of batch B.
 
+Everything a StyledConv runs after its convolution, and each level's
+2x-upsampled skip with the biases around it, goes through ``ops.tails``:
+one K7 pass (``kernels/csrc/styled_tail.cu``) on a card's channels_last
+maps, the plain ops elsewhere.
+
 With ``rgb_in_kernel`` the last level, when shared, warps and contracts
 its 1×1 ToRGB in one kernel (``warps.rgb``, K2), so its (B, S, S, C)
 warped map is never stored (``float_tpu``'s ``_packed_warp_rgb`` with
@@ -32,8 +37,8 @@ import math
 
 import torch
 
-from ..ops import (DISPATCH, Warps, equal_conv2d, fused_leaky_relu,
-                   identity_grid, modulated_conv2d, upsample2x)
+from ..ops import (DISPATCH, Warps, equal_conv2d, identity_grid,
+                   modulated_conv2d, skip_tail, styled_conv2d)
 
 CL = torch.channels_last
 
@@ -57,20 +62,17 @@ def direction(params, alpha):
 def _styled_conv(x, style, p, up: bool, blur_kernel=(1, 3, 3, 1)):
     """StyledConv: modulated conv (+ optional upsample) -> fused lrelu.
     NoiseInjection is the identity at inference and is omitted."""
-    out = modulated_conv2d(
+    return styled_conv2d(
         x, style, p["conv"]["weight"], p["conv"]["modulation"]["weight"],
-        p["conv"]["modulation"]["bias"], demodulate=True, up=up,
-        blur_kernel=blur_kernel)
-    return fused_leaky_relu(out, p["activate"]["bias"].reshape(-1))
+        p["conv"]["modulation"]["bias"], p["activate"]["bias"].reshape(-1),
+        up=up, blur_kernel=blur_kernel)
 
 
 def _rgb_tail(out, p, skip, blur_kernel):
     """ToRGB after its 1×1 conv: fused lrelu, + bias, + 2x-upsampled skip."""
-    out = fused_leaky_relu(out, p["conv"]["1"]["bias"].reshape(-1))
-    out = out + p["bias"].reshape(1, 3, 1, 1).to(out.dtype)
-    if skip is not None:
-        out = out + upsample2x(skip, blur_kernel)
-    return out
+    return skip_tail(out, skip, p["bias"].reshape(-1),
+                     act_bias=p["conv"]["1"]["bias"].reshape(-1),
+                     blur_kernel=blur_kernel)
 
 
 def _to_rgb(x, p, skip=None, blur_kernel=(1, 3, 3, 1)):
@@ -86,9 +88,7 @@ def _flow_pred(x, style, p, skip, blur_kernel):
     out = modulated_conv2d(
         x, style, p["conv"]["weight"], p["conv"]["modulation"]["weight"],
         p["conv"]["modulation"]["bias"], demodulate=False)
-    out = out + p["bias"].reshape(1, 3, 1, 1).to(out.dtype)
-    if skip is not None:
-        out = out + upsample2x(skip, blur_kernel)
+    out = skip_tail(out, skip, p["bias"].reshape(-1), blur_kernel=blur_kernel)
     sampler = torch.tanh(out[:, 0:2].float())
     mask = torch.sigmoid(out[:, 2:3].float()).to(x.dtype)
     flow = (sampler.permute(0, 2, 3, 1)

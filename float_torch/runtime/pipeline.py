@@ -466,7 +466,7 @@ class FloatPipeline:
 
     def warmup(self, seconds: float = 2.0, first_chunk: int = 8) -> float:
         """Run the serving paths once before the first request: on the
-        card this builds the decode's two kernel libraries
+        card this builds the decode's kernel libraries
         (``kernels.build.build_all(DECODE_SOURCES)``)
         and lets cuDNN pick its algorithms for the full and first-chunk
         decode shapes.  One ``generate`` and one ``generate_stream`` per
