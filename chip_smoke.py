@@ -1195,12 +1195,25 @@ def bf16_grid_warps():
         f, g.to(torch.bfloat16).float()))
 
 
+def decode_first_chunk(pl, s_r, feats, r_d, nb: int, out_u8=False, **kw):
+    """``r_d``'s first ``nb`` frames decoded as one chunk of the decode
+    loops (``decode._run_chunks``: their cast of the latents and the skip
+    maps), ``kw`` passed on to ``decode_chunk`` (``warps=``)."""
+    import functools
+    from float_torch.runtime.decode import _run_chunks, decode_chunk
+    with torch.inference_mode():
+        (_start, _n, out), = _run_chunks(
+            pl.syn_cast, s_r, feats, [r_d[:nb]], [nb],
+            size=pl.cfg.input_size, compute_dtype=pl.compute_dtype,
+            out_u8=out_u8, chunk_fn=functools.partial(decode_chunk, **kw))
+    return out
+
+
 def phase_paths(c1: dict) -> dict:
     """Config 1's other paths through the entry points a user calls; each
     gate against ``generate``'s frames with its controls."""
     from float_torch.ops.yuv420 import i420_to_rgb_u8, rgb01_to_i420
-    from float_torch.runtime.decode import (_prepare, decode_chunk,
-                                            decode_latents)
+    from float_torch.runtime.decode import decode_latents
     pipe, frames = c1["pipe"], c1["frames"]
     s_r, feats, r_d = c1["s_r"], c1["feats"], c1["r_d"][0]
     t_frames = r_d.shape[0]
@@ -1247,10 +1260,8 @@ def phase_paths(c1: dict) -> dict:
     # the gate's other control: generate's first chunk decoded again with
     # its warp grids rounded to bf16
     nb = pipe.cfg.decode_batch
-    wa_c, feats_c = _prepare(s_r, feats, r_d[:nb], nb, pipe.compute_dtype)
-    with torch.inference_mode():
-        coarse = decode_chunk(pipe.syn_cast, wa_c, feats_c, size,
-                              warps=bf16_grid_warps())
+    coarse = decode_first_chunk(pipe, s_r, feats, r_d, nb,
+                                warps=bf16_grid_warps())
     err = (coarse - frames[:nb]).abs().max().item()
     log(f"[path] control, generate's first chunk with bf16 warp grids: max"
         f"|diff| {err:.3e} (must exceed DECODE_TOL {DECODE_TOL:.3g})")
@@ -1740,8 +1751,7 @@ def phase_serve(c1: dict, reg: dict, root: Path, unified: str) -> None:
     from float_torch.client import FloatClient, _b64, _jpeg_to_rgb
     from float_torch.io.video import video_backend
     from float_torch.ops.yuv420 import i420_to_rgb_u8
-    from float_torch.runtime.decode import (_prepare, decode_chunk,
-                                            stream_chunk_count)
+    from float_torch.runtime.decode import stream_chunk_count
     from float_torch.serve import _jpeg_encode_frames, load_pipe
 
     cfg = c1["pipe"].cfg
@@ -1815,12 +1825,9 @@ def phase_serve(c1: dict, reg: dict, root: Path, unified: str) -> None:
             wa = pl.encode_audio(wave_n, t_frames)
             r_d = pl.sample(r_s, wa, pl.emotion_latent(wave_n, "none"),
                             seed=15)
-            wa_c, feats_c = _prepare(s_r, feats, r_d[0, :nb], nb,
-                                     pl.compute_dtype)
-            again = decode_chunk(pl.syn_cast, wa_c, feats_c, size,
-                                 out_u8=True)
-            coarse = decode_chunk(pl.syn_cast, wa_c, feats_c, size,
-                                  out_u8=True, warps=bf16_grid_warps())
+        again = decode_first_chunk(pl, s_r, feats, r_d[0], nb, out_u8=True)
+        coarse = decode_first_chunk(pl, s_r, feats, r_d[0], nb, out_u8=True,
+                                    warps=bf16_grid_warps())
         for enc in ("raw", "jpeg"):
             got, _, _ = run_path(
                 f"/v1/generate stream {enc}",

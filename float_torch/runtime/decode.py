@@ -9,17 +9,22 @@ program, the on-device decode, and the host-delivery loops.
                            arrive (the streaming mode)
     decode_clips_to_host   several clips in one dispatch stream
     FrameParallel          a chunk's frames split over a mesh's devices
-                           (``chunk_fn=`` of each loop)
+                           (``chunk_fn=`` of each entry point)
 
 The TPU decode's D/path ratchets, optimistic and fixup programs, steady
 probe and pessimist switch exist only for the TPU kernels' static tap
 window; the CUDA warp kernels gather their taps for any displacement and
 are exact, so none of them has a counterpart here.
 
-On a CUDA device the host loops overlap the copy of chunk c with the
-compute of chunk c+1: the copy runs on a side stream into pinned memory,
-ordered after chunk c by the stream's wait, and the host blocks only on
-the chunk it hands out.
+Every entry point consumes one chunk loop, ``_run_chunks``: its caller
+gives the plan of chunk sizes (``chunk_sizes`` for a clip; for a stream
+``first_chunk_size``, then full chunks), and the loop casts the skip
+maps once, forms and pads each chunk's latents and calls the chunk
+program.  The host paths take its chunks through ``_in_flight``, which
+keeps one chunk in flight: on a CUDA device the copy of chunk c runs on
+a side stream into pinned memory (``_HostCopy``), ordered after chunk c
+by the stream's wait, while chunk c+1 computes, and the host blocks only
+on the chunk it hands out.
 
 Spans (``utils.profiling``): ``decode.chunk`` around each chunk's
 dispatch, ``wire.pin`` around a copy's pinned allocation and its queueing,
@@ -28,6 +33,7 @@ dispatch, ``wire.pin`` around a copy's pinned allocation and its queueing,
 from __future__ import annotations
 
 import copy
+import itertools
 import math
 
 import numpy as np
@@ -139,15 +145,53 @@ class FrameParallel:
         return torch.cat(outs)
 
 
-def _prepare(s_r, feats, r_d, t_pad: int, compute_dtype):
-    """wa = s_r + r_d in f32, cast to ``compute_dtype`` and edge-padded to
-    ``t_pad`` rows with its last latent; the skip maps cast once."""
-    wa = (s_r.float() + r_d.float()).to(compute_dtype)
-    if t_pad > wa.shape[0]:
-        wa = torch.cat([wa, wa[-1:].expand(t_pad - wa.shape[0], -1)])
+def _planned_rows(pieces, sizes):
+    """(rows, n_valid) of each planned chunk: the next size of ``sizes``
+    as soon as that many latent rows of ``pieces`` are buffered; a last
+    partial chunk padded to its planned size with its last latent."""
+    sizes = iter(sizes)
+    want = next(sizes, None)
+    buf, buffered = [], 0
+    for piece in pieces:
+        buf.append(piece)
+        buffered += piece.shape[0]
+        while want is not None and buffered >= want:
+            cat = buf[0] if len(buf) == 1 else torch.cat(buf)
+            rows, rest = cat[:want], cat[want:]
+            buf = [rest] if rest.shape[0] else []
+            buffered = rest.shape[0]
+            yield rows, want
+            want = next(sizes, None)
+    if buffered:
+        cat = buf[0] if len(buf) == 1 else torch.cat(buf)
+        yield torch.cat([cat, cat[-1:].expand(want - buffered, -1)]), buffered
+
+
+def _run_chunks(synthesis_params, s_r, feats, pieces, sizes, *, size: int,
+                compute_dtype, out_u8=False,
+                rgb_in_kernel: bool = RGB_IN_KERNEL,
+                blur_kernel=(1, 3, 3, 1), chunk_fn=None):
+    """The one chunk loop of every decode: consume (k, dim_w) r_d
+    ``pieces`` and dispatch a chunk for each planned size of ``sizes`` ->
+    yield (start frame, valid frames, the chunk's frames on the device).
+
+    The skip maps are cast once (compute dtype, channels_last) at the
+    first chunk; each chunk's wa = s_r + r_d in f32, cast to
+    ``compute_dtype``, is made and decoded by ``chunk_fn`` (else the
+    module's ``decode_chunk``, looked up at each call) within a
+    ``decode.chunk`` span, closed before the chunk is yielded."""
+    s32 = s_r.float()
     feats_c = [f.to(compute_dtype).contiguous(memory_format=CL)
                for f in feats]
-    return wa, feats_c
+    start = 0
+    for index, (rows, n_valid) in enumerate(_planned_rows(pieces, sizes)):
+        with span("decode.chunk", index=index, frames=rows.shape[0]):
+            wa = (s32 + rows.float()).to(compute_dtype)
+            dev = (chunk_fn or decode_chunk)(
+                synthesis_params, wa, feats_c, size, out_u8=out_u8,
+                rgb_in_kernel=rgb_in_kernel, blur_kernel=blur_kernel)
+        yield start, n_valid, dev
+        start += rows.shape[0]
 
 
 def decode_latents(synthesis_params, s_r, feats, r_d, *, size: int,
@@ -161,21 +205,17 @@ def decode_latents(synthesis_params, s_r, feats, r_d, *, size: int,
     The last chunk pads by repeating the last latent and its extra frames
     are dropped.  ``frame_callback(i, n)`` fires after chunk i is
     dispatched.  ``chunk_fn`` replaces ``decode_chunk`` (e.g. a
-    :class:`FrameParallel`), as in the other decode loops."""
+    :class:`FrameParallel`), as in the other entry points."""
     t_frames = r_d.shape[0]
     sizes = chunk_sizes(t_frames, decode_batch)
-    wa, feats_c = _prepare(s_r, feats, r_d, sum(sizes), compute_dtype)
     frames = torch.empty((t_frames, size, size, 3), dtype=torch.float32,
-                         device=wa.device)
-    fn = chunk_fn or decode_chunk
-    lo = 0
-    for ci, sz in enumerate(sizes):
-        with span("decode.chunk", index=ci, frames=sz):
-            chunk = fn(synthesis_params, wa[lo:lo + sz], feats_c, size,
-                       rgb_in_kernel=rgb_in_kernel, blur_kernel=blur_kernel)
-            n = min(sz, t_frames - lo)
-            frames[lo:lo + n] = chunk[:n]
-        lo += sz
+                         device=r_d.device)
+    chunks = _run_chunks(synthesis_params, s_r, feats, [r_d], sizes,
+                         size=size, compute_dtype=compute_dtype,
+                         rgb_in_kernel=rgb_in_kernel,
+                         blur_kernel=blur_kernel, chunk_fn=chunk_fn)
+    for ci, (lo, n, chunk) in enumerate(chunks):
+        frames[lo:lo + n] = chunk[:n]
         if frame_callback is not None:
             frame_callback(ci, len(sizes))
     return frames
@@ -209,8 +249,20 @@ class _HostCopy:
         return self.host.numpy()
 
 
-def _copy_stream(device):
-    return torch.cuda.Stream(device) if device.type == "cuda" else None
+def _in_flight(chunks):
+    """(tag, host array) of each (tag, device frames) of ``chunks``, one
+    chunk behind: chunk c+1 is dispatched and its copy queued
+    (``_HostCopy``) before the host waits for chunk c's bytes."""
+    stream = pending = None
+    for tag, dev in chunks:
+        if stream is None and dev.device.type == "cuda":
+            stream = torch.cuda.Stream(dev.device)
+        copy = _HostCopy(dev, stream)
+        if pending is not None:
+            yield pending[0], pending[1].numpy()
+        pending = tag, copy
+    if pending is not None:
+        yield pending[0], pending[1].numpy()
 
 
 def _store(dst: np.ndarray, host: np.ndarray, uint8_transfer: bool) -> None:
@@ -272,27 +324,16 @@ def decode_latents_stream(synthesis_params, s_r, feats, latent_iter, *,
     out_u8 = "yuv420" if emit == "yuv420" else (uint8_transfer
                                                 or emit == "u8")
     fb = decode_batch
-    first_chunk = first_chunk_size(first_chunk, fb)
-    s32 = s_r.float()
-    feats_c = [f.to(compute_dtype).contiguous(memory_format=CL)
-               for f in feats]
-    stream = _copy_stream(s32.device)
-    fn = chunk_fn or decode_chunk
-    n_sent = n_done = 0
-
-    def dispatch(rows, start, n_valid):
-        nonlocal n_sent
-        with span("decode.chunk", index=n_sent, frames=rows.shape[0]):
-            wa_c = (s32 + rows.float()).to(compute_dtype)
-            dev = fn(synthesis_params, wa_c, feats_c, size, out_u8=out_u8,
-                     blur_kernel=blur_kernel)
-        n_sent += 1
-        return start, n_valid, _HostCopy(dev, stream)
-
-    def take(item):
-        nonlocal n_done
-        start, n_valid, copy = item
-        host = copy.numpy()[:n_valid]
+    sizes = itertools.chain([first_chunk_size(first_chunk, fb) or fb],
+                            itertools.repeat(fb))
+    chunks = _run_chunks(synthesis_params, s_r, feats, latent_iter, sizes,
+                         size=size, compute_dtype=compute_dtype,
+                         out_u8=out_u8, blur_kernel=blur_kernel,
+                         chunk_fn=chunk_fn)
+    n_done = 0
+    for (start, n), host in _in_flight(((start, n), dev)
+                                       for start, n, dev in chunks):
+        host = host[:n]
         if emit == "f32" and uint8_transfer:
             f32 = np.empty(host.shape, np.float32)
             _store(f32, host, True)
@@ -300,36 +341,8 @@ def decode_latents_stream(synthesis_params, s_r, feats, latent_iter, *,
         n_done += 1
         if frame_callback is not None:
             frame_callback(n_done - 1, -1)
-        return start, host
-
-    buf: list = []                     # pending latent rows
-    buffered = 0
-    pending = None
-    emitted_rows = 0
-    want = first_chunk or fb           # ramp size for dispatch 0 only
-    for piece in latent_iter:
-        buf.append(piece)
-        buffered += piece.shape[0]
-        while buffered >= want:
-            cat = buf[0] if len(buf) == 1 else torch.cat(buf)
-            rows, rest = cat[:want], cat[want:]
-            buf = [rest] if rest.shape[0] else []
-            buffered = rest.shape[0]
-            item = dispatch(rows, emitted_rows, want)
-            emitted_rows += want
-            want = fb
-            if pending is not None:
-                yield take(pending)
-            pending = item
-    if buffered:
-        cat = buf[0] if len(buf) == 1 else torch.cat(buf)
-        pad = cat[-1:].expand(want - buffered, -1)
-        item = dispatch(torch.cat([cat, pad]), emitted_rows, buffered)
-        if pending is not None:
-            yield take(pending)
-        pending = item
-    if pending is not None:
-        yield take(pending)
+        yield start, host
+        del host            # not held while the next chunks dispatch
 
 
 @torch.inference_mode()
@@ -346,43 +359,23 @@ def decode_clips_to_host(synthesis_params, clips, *, size: int,
     its first chunk is dispatched and dropped after its last, so N clips
     never hold N cast copies of their skip maps at once.
     ``frame_callback(i, n)`` fires as the i-th of all n chunks arrives."""
-    fb = decode_batch
-    metas = []                          # (t_frames, sizes) per clip
-    outs = []
-    for _s_r, _feats, r_d in clips:
-        t_frames = r_d.shape[0]
-        metas.append((t_frames, chunk_sizes(t_frames, fb)))
-        outs.append(np.empty((t_frames, size, size, 3), np.float32))
-    total = sum(len(sizes) for _t, sizes in metas)
-    fn = chunk_fn or decode_chunk
-    stream = None
-    n_done = 0
+    plans = [chunk_sizes(r_d.shape[0], decode_batch) for _s, _f, r_d in clips]
+    outs = [np.empty((r_d.shape[0], size, size, 3), np.float32)
+            for _s, _f, r_d in clips]
+    total = sum(map(len, plans))
 
-    def drain(k, ci, copy):
-        nonlocal n_done
-        t_frames = metas[k][0]
-        lo = ci * fb
-        hi = min(lo + fb, t_frames)
-        _store(outs[k][lo:hi], copy.numpy()[:hi - lo], uint8_transfer)
+    def chunks():
+        for k, ((s_r, feats, r_d), sizes) in enumerate(zip(clips, plans)):
+            for lo, n, dev in _run_chunks(
+                    synthesis_params, s_r, feats, [r_d], sizes, size=size,
+                    compute_dtype=compute_dtype, out_u8=uint8_transfer,
+                    blur_kernel=blur_kernel, chunk_fn=chunk_fn):
+                yield (k, lo, n), dev
+    n_done = 0
+    for (k, lo, n), host in _in_flight(chunks()):
+        _store(outs[k][lo:lo + n], host[:n], uint8_transfer)
+        del host            # chunk c's pinned buffer, free for c+2's copy
         n_done += 1
         if frame_callback is not None:
             frame_callback(n_done - 1, total)
-
-    pending = None
-    for k, (s_r, feats, r_d) in enumerate(clips):
-        _t, sizes = metas[k]
-        wa, feats_c = _prepare(s_r, feats, r_d, sum(sizes), compute_dtype)
-        if stream is None:
-            stream = _copy_stream(wa.device)
-        for ci, sz in enumerate(sizes):
-            with span("decode.chunk", index=ci, frames=sz):
-                dev = fn(synthesis_params, wa[ci * fb:ci * fb + sz], feats_c,
-                         size, out_u8=uint8_transfer, blur_kernel=blur_kernel)
-            copy = _HostCopy(dev, stream)
-            if pending is not None:
-                drain(*pending)
-            pending = (k, ci, copy)
-        del wa, feats_c
-    if pending is not None:
-        drain(*pending)
     return outs

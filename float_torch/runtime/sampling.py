@@ -13,13 +13,13 @@ replayed from a CUDA graph (``ChunkGraphs``, held by the FMT's
 ``ParamTree``): one graph launch in place of some hundreds of kernel
 launches a step.  The graph is the eager chunk captured, so both give
 the same numbers; the chunks run eagerly where no graph applies
-(``chunk_graphs``).  ``CHUNK_COUNTS`` counts both kinds.
+(``chunk_graphs``).  Each chunk's ``sample.chunk`` span records which.
 """
 from __future__ import annotations
 
 import math
 import threading
-from collections import Counter, OrderedDict
+from collections import OrderedDict
 from typing import Optional
 
 import torch
@@ -30,9 +30,6 @@ from ..models.init import ParamTree
 from ..ops import odeint_fixed
 from ..utils.profiling import span
 
-# sampler chunks by how they ran: "captures" (a chunk's graph made),
-# "replays" (a chunk replayed from its graph), "eager" (op by op)
-CHUNK_COUNTS: Counter = Counter()
 _NEW_GRAPHS = threading.Lock()      # makes ChunkGraphs and capture streams
 _CAPTURE_STREAMS: dict = {}         # device -> (its captures' stream, lock)
 
@@ -191,7 +188,6 @@ class ChunkGraphs:
         graph = self.graphs.get(key)
         if graph is None:
             graph = self.graphs[key] = make()
-            CHUNK_COUNTS["captures"] += 1
             while len(self.graphs) > self.size:
                 self.graphs.popitem(last=False)
         else:
@@ -219,7 +215,6 @@ class ChunkGraphs:
             graph = self.get(key, lambda: _ChunkGraph(fmt_params, inputs,
                                                       scales, kw))
             sample_t = graph(inputs, scales)
-            CHUNK_COUNTS["replays"] += 1
         return sample_t, _next_carry(sample_t, wa_t, we_t, carry,
                                      cfg.num_prev_frames)
 
@@ -295,7 +290,6 @@ def sample_motion_chunks(fmt_params, r_s, wa, we, *, cfg: FloatConfig,
             args = (fmt_params, r_s, wa_p[:, sl],
                     we_p[:, sl] if dynamic else we, carry, x0)
             if graphs is None:
-                CHUNK_COUNTS["eager"] += 1
                 sample_t, carry = sample_motion_chunk(*args, **kw)
             else:
                 sample_t, carry = graphs.run(*args, **kw)

@@ -7,6 +7,8 @@
   host-delivery loops (to host, stream, several clips) against their JAX
   twins at 64², where the JAX decode takes the exact gather warp."""
 import functools
+import inspect
+import time
 
 import jax
 import jax.experimental.pallas.tpu as pltpu
@@ -24,6 +26,7 @@ from float_tpu.runtime import decode as j_dec
 from float_torch.models import synthesis as t_syn
 from float_torch.ops import yuv420 as t_yuv
 from float_torch.runtime import decode as t_dec
+from float_torch.utils import profiling
 from torch_parity import max_err, port_params, randn
 
 BF16_FLOOR = 6.3e-2      # tests/test_warp_v2_interpret.py's bf16 bound
@@ -269,3 +272,90 @@ def test_one_frame_chunks_equal_batched_decode(tiny_decode):
         batched = t_dec.decode_latents(*args, size=64, decode_batch=8)
     assert one.shape == (5, 64, 64, 3)
     assert max_err(one, batched) <= 1e-5
+
+
+# --- every entry point's chunk plan, spans and callbacks -------------------
+
+def _stream(params, s_r, feats, r_d, cb, **kw):
+    return list(t_dec.decode_latents_stream(
+        params, s_r, feats, iter(_pieces(r_d)), size=64, decode_batch=8,
+        frame_callback=cb, **kw))
+
+
+# entry point -> (its call on the 13 latents at fb 8; per chunk its rows,
+# out_u8, rgb_in_kernel and blur_kernel, its decode.chunk's index, and
+# the callback's (i, n)).  Clips: full chunks, the last shrunk to the
+# smallest multiple of 4 covering the rest (13 -> 8 + 8, 10 -> 8 + 4);
+# the stream: the ramp's first_chunk_size, then 8s, the last padded.
+B = (1, 3, 3, 1)
+PLANS = {
+    "decode_latents": (
+        lambda p, s, f, r, cb: t_dec.decode_latents(
+            p, s, f, r, size=64, decode_batch=8, rgb_in_kernel=True,
+            frame_callback=cb),
+        [(8, False, True, B, 0, (0, 2)), (8, False, True, B, 1, (1, 2))]),
+    "decode_latents_to_host": (
+        lambda p, s, f, r, cb: t_dec.decode_latents_to_host(
+            p, s, f, r, size=64, decode_batch=8, frame_callback=cb),
+        [(8, True, False, B, 0, (0, 2)), (8, True, False, B, 1, (1, 2))]),
+    "decode_latents_stream first_chunk=0": (
+        _stream,
+        [(8, True, False, B, 0, (0, -1)), (8, True, False, B, 1, (1, -1))]),
+    "decode_latents_stream first_chunk=4": (
+        lambda p, s, f, r, cb: _stream(p, s, f, r, cb, first_chunk=4,
+                                       emit="u8"),
+        [(4, True, False, B, 0, (0, -1)), (8, True, False, B, 1, (1, -1)),
+         (8, True, False, B, 2, (2, -1))]),
+    "decode_clips_to_host": (
+        lambda p, s, f, r, cb: t_dec.decode_clips_to_host(
+            p, [(s, f, r), (s * 0.5, f, r[:10])], size=64, decode_batch=8,
+            uint8_transfer=False, frame_callback=cb),
+        [(8, False, False, B, 0, (0, 4)), (8, False, False, B, 1, (1, 4)),
+         (8, False, False, B, 0, (2, 4)), (4, False, False, B, 1, (3, 4))]),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(PLANS))
+def test_each_entry_points_chunk_plan_spans_and_callbacks(tiny_decode,
+                                                          monkeypatch, entry):
+    """Every ``decode_chunk`` call of an entry point (its rows and the
+    values it takes for out_u8, rgb_in_kernel and blur_kernel, an absent
+    keyword counted as its default), one ``decode.chunk`` span around
+    each with the chunk's ``frames`` and ``index`` (from 0 again for each
+    clip), and the callback's events.  ``decode_latents`` reports chunk c
+    between its span's end and chunk c+1's start; the host paths keep
+    one chunk in flight: chunk c+1's span opens before chunk c's
+    callback."""
+    run, plan = PLANS[entry]
+    _, params, feats, s_r, r_d = tiny_decode
+    real = t_dec.decode_chunk
+    sig = inspect.signature(real)
+    calls, events = [], []
+
+    def recorded(*a, **k):
+        args = sig.bind(*a, **k)
+        args.apply_defaults()
+        kw = args.arguments
+        calls.append((kw["wa_chunk"].shape[0], kw["out_u8"],
+                      kw["rgb_in_kernel"], tuple(kw["blur_kernel"])))
+        return real(*a, **k)
+    monkeypatch.setattr(t_dec, "decode_chunk", recorded)
+    profiling.tracing_on()
+    try:
+        with torch.inference_mode():
+            run(params, torch.from_numpy(s_r),
+                [torch.from_numpy(f) for f in feats], torch.from_numpy(r_d),
+                lambda i, n: events.append((i, n, time.time_ns())))
+        spans = sorted((s for s in profiling.take().spans
+                        if s.name == "decode.chunk"), key=lambda s: s.start_ns)
+    finally:
+        profiling.tracing_off()
+    assert calls == [p[:4] for p in plan]
+    assert [(s.attrs["index"], s.attrs["frames"]) for s in spans] == [
+        (p[4], p[0]) for p in plan]
+    assert [e[:2] for e in events] == [p[5] for p in plan]
+    for c, (_i, _n, at) in enumerate(events[:-1]):
+        if entry == "decode_latents":            # on dispatch
+            assert spans[c].end_ns <= at <= spans[c + 1].start_ns
+        else:                                    # on arrival
+            assert spans[c + 1].start_ns < at

@@ -110,6 +110,19 @@ def _chunk_spans(run):
     return out, spans
 
 
+def _captures(monkeypatch) -> list:
+    """The CFG scales of each chunk graph made from here on:
+    ``sampling._ChunkGraph`` (or its stand-in) wrapped in a recording
+    constructor."""
+    made, real = [], sampling._ChunkGraph
+
+    def make(fmt_params, inputs, scales, kw):
+        made.append(scales)
+        return real(fmt_params, inputs, scales, kw)
+    monkeypatch.setattr(sampling, "_ChunkGraph", make)
+    return made
+
+
 def _plain(tree):
     """A nested dict of tensors (no ParamTree)."""
     if isinstance(tree, dict):
@@ -125,23 +138,22 @@ def _tp_fmt(cfg):
 
 @pytest.mark.parametrize("params", ["cpu pipeline", "tp_shards",
                                     "plain dict"])
-def test_where_no_graph_applies_the_chunks_run_eagerly(pipe, params):
+def test_where_no_graph_applies_the_chunks_run_eagerly(pipe, monkeypatch,
+                                                      params):
     """A CPU pipeline, an FMT split over model ranks and a plain dict of
-    weights record graphed = 0 and count eager chunks, and none of them
-    makes a graph; the last two would not on a card either."""
+    weights run every chunk eagerly (graphed = 0, so none replayed), and
+    none of them makes a graph; the last two would not on a card either."""
     fmt = {"cpu pipeline": lambda: pipe.params["fmt"],
            "tp_shards": lambda: _tp_fmt(CFG),
            "plain dict": lambda: _plain(init_fmt(CFG))}[params]()
     if params != "cpu pipeline":
         assert sampling.chunk_graphs(fmt, torch.device("cuda")) is None
     r_s, wa, we = _conditions(CFG, 25)
-    before = dict(sampling.CHUNK_COUNTS)
+    made = _captures(monkeypatch)
     _r_d, spans = _chunk_spans(lambda: sampling.sample_motion_latents(
         fmt, r_s, wa, we, cfg=CFG, generator=torch.Generator().manual_seed(1)))
     assert [s.attrs["graphed"] for s in spans] == [0, 0, 0]
-    got = {k: sampling.CHUNK_COUNTS[k] - before.get(k, 0)
-           for k in ("eager", "captures", "replays")}
-    assert got == {"eager": 3, "captures": 0, "replays": 0}
+    assert made == []
     assert getattr(fmt, "chunk_graphs", None) is None
 
 
@@ -151,7 +163,6 @@ def test_the_cache_drops_its_least_recently_used_key():
 
     def make(name):
         return lambda: made.append(name) or name
-    before = sampling.CHUNK_COUNTS["captures"]
     assert graphs.get("a", make("a")) == "a"
     assert graphs.get("b", make("b")) == "b"
     assert graphs.get("a", make("a2")) == "a"      # kept, now the newest
@@ -160,7 +171,6 @@ def test_the_cache_drops_its_least_recently_used_key():
     assert graphs.get("b", make("b2")) == "b2"     # made again, drops a
     assert list(graphs.graphs) == ["c", "b"]
     assert made == ["a", "b", "c", "b2"]
-    assert sampling.CHUNK_COUNTS["captures"] - before == 4
 
 
 def _old_pos_embed(n_position, d_hid, device=None):
@@ -251,7 +261,7 @@ def graphed(monkeypatch):
 
 
 @pytest.mark.parametrize("dynamic", [False, True])
-def test_the_graph_paths_bookkeeping(pipe, graphed, dynamic):
+def test_the_graph_paths_bookkeeping(pipe, graphed, monkeypatch, dynamic):
     """Static buffers copied in, the output copied out: each chunk in
     storage of its own, equal to the eager chunk; one capture a key, a
     replay a chunk, graphed = 1; the cache sits on the FMT's tree."""
@@ -263,11 +273,10 @@ def test_the_graph_paths_bookkeeping(pipe, graphed, dynamic):
             return list(sampling.sample_motion_chunks(
                 params, r_s, wa, we, cfg=CFG,
                 generator=torch.Generator().manual_seed(9), **SCALES))
-    before = dict(sampling.CHUNK_COUNTS)
+    made = _captures(monkeypatch)
     got, spans = _chunk_spans(lambda: chunks(fmt))
     assert [s.attrs["graphed"] for s in spans] == [1, 1, 1]
-    assert sampling.CHUNK_COUNTS["captures"] - before.get("captures", 0) == 1
-    assert sampling.CHUNK_COUNTS["replays"] - before.get("replays", 0) == 3
+    assert len(made) == 1
     assert len({c.data_ptr() for c in got}) == 3
     want = chunks(_plain(init_fmt(CFG, seed=11)))   # a plain dict: eager
     assert all(torch.equal(a, b) for a, b in zip(got, want))
@@ -282,7 +291,8 @@ MIXED = [dict(a_cfg_scale=1.3, e_cfg_scale=0.7, r_cfg_scale=1.0),
          dict(a_cfg_scale=1.0, e_cfg_scale=1.0, r_cfg_scale=1.0)]
 
 
-def test_requests_with_their_own_scales_share_their_modes_graph(graphed):
+def test_requests_with_their_own_scales_share_their_modes_graph(graphed,
+                                                                monkeypatch):
     """Scales that change from request to request: one capture for the
     3-way mode and one for 'skip' (every scale 1.0), and every request
     equal to its eager latents."""
@@ -295,10 +305,10 @@ def test_requests_with_their_own_scales_share_their_modes_graph(graphed):
             return sampling.sample_motion_latents(
                 params, r_s, wa, we, cfg=CFG,
                 generator=torch.Generator().manual_seed(2), **scales)
-    before = sampling.CHUNK_COUNTS["captures"]
+    made = _captures(monkeypatch)
     for scales in MIXED + MIXED[:1]:
         assert torch.equal(sample(fmt, scales), sample(plain, scales))
-    assert sampling.CHUNK_COUNTS["captures"] - before == 2
+    assert len(made) == 2
     assert [k[4] for k in fmt.chunk_graphs.graphs] == ["skip", "3way"]
 
 
@@ -398,17 +408,20 @@ def test_replayed_chunks_equal_eager_ones_bit_for_bit(card, monkeypatch,
     own, which later replays leave as it was."""
     fmt = _card_fmt(card, 1)
     t = 2 * C1.num_frames_for_clip + 17
-    with torch.inference_mode():
-        before = dict(sampling.CHUNK_COUNTS)
+
+    def replayed():
         kept, copies = [], []
         for c in _card_sample(fmt, card, t, dynamic):
             kept.append(c)
             copies.append(c.clone())
             torch.relu(c @ c.transpose(1, 2)).sum()   # the consumer's work
         clip = torch.cat(list(_card_sample(fmt, card, t, dynamic)), dim=1)
+        return kept, copies, clip
+    with torch.inference_mode():
+        (kept, copies, clip), spans = _chunk_spans(replayed)
         _eager(monkeypatch)
         want = list(_card_sample(fmt, card, t, dynamic))
-    assert sampling.CHUNK_COUNTS["replays"] - before.get("replays", 0) == 6
+    assert [s.attrs["graphed"] for s in spans] == [1] * 6
     assert len({c.data_ptr() for c in kept}) == 3
     assert all(torch.equal(a, b) for a, b in zip(kept, copies))
     assert all(torch.equal(a, b) for a, b in zip(kept, want))
@@ -428,10 +441,10 @@ def test_replays_with_each_requests_scales_equal_eager_ones(card,
         gen = torch.Generator(device=card).manual_seed(103)
         return sampling.sample_motion_latents(fmt, r_s, wa, we, cfg=C1,
                                               generator=gen, **scales)
+    made = _captures(monkeypatch)
     with torch.inference_mode():
-        before = sampling.CHUNK_COUNTS["captures"]
         got = [clip(s) for s in MIXED + MIXED[:1]]
-        assert sampling.CHUNK_COUNTS["captures"] - before == 2
+        assert len(made) == 2
         _eager(monkeypatch)
         want = [clip(s) for s in MIXED + MIXED[:1]]
     assert all(torch.equal(a, b) for a, b in zip(got, want))
