@@ -35,6 +35,10 @@ wrappers.  Phases:
    portrait and 10 s of 16 kHz audio -> 250 frames, emotion predicted by
    the SER, 3-way CFG, 10 Euler steps, bf16 decode in 24-frame chunks;
    three timed clips (median), the launch counts of each checked;
+5b. the decode's chunk graphs: config 1's decode of the clip replayed
+   from its CUDA graphs against the same decode run op by op, frames
+   bit for bit and launch counts by kernel and shape equal, every chunk
+   replayed; both timed in turns, the clip and one 24-frame chunk alone;
 6. the first decode chunk through the kernels and through the plain
    warps, and the largest tap displacement of its flows at each level;
 7. K3 (``warp_per_frame``) at every level of a 512² decode and, through
@@ -1117,6 +1121,61 @@ def phase_config1() -> dict:
             "launches_k4": launches_k4}
 
 
+def phase_decode_graphs(c1: dict) -> None:
+    """Config 1's decode replayed from its chunk graphs against the same
+    decode op by op (``decode.decode_graphs`` giving None): the clip's
+    frames bit for bit, the launch counts of both (the graph's counted
+    per replay), every chunk replayed; both timed in turns, the clip and
+    one 24-frame chunk alone."""
+    from float_torch.kernels import LAUNCH_SHAPES, LAUNCHES
+    from float_torch.runtime import decode as dm
+    from float_torch.utils import profiling
+    pipe, s_r, feats, r_d = c1["pipe"], c1["s_r"], c1["feats"], c1["r_d"]
+    real = dm.decode_graphs
+    nb = pipe.cfg.decode_batch
+
+    def run(graphed: bool, rows=None):
+        dm.decode_graphs = real if graphed else (lambda *a: None)
+        try:
+            return pipe.decode(s_r, feats, r_d if rows is None
+                               else r_d[:, :rows])
+        finally:
+            dm.decode_graphs = real
+
+    out, counts = {}, {}
+    for graphed in (False, True):
+        LAUNCHES.clear()
+        LAUNCH_SHAPES.clear()
+        profiling.tracing_on()
+        try:
+            out[graphed] = run(graphed)
+            torch.cuda.synchronize()
+            spans = [s for s in profiling.take().spans
+                     if s.name == "decode.chunk"]
+        finally:
+            profiling.tracing_off()
+        counts[graphed] = (dict(LAUNCHES), dict(LAUNCH_SHAPES))
+        flags = [s.attrs["graphed"] for s in spans]
+        check(flags == [int(graphed)] * len(spans),
+              f"decode graphed={graphed}: chunks' graphed {flags}")
+    check(torch.equal(out[True], out[False]),
+          "the replayed decode's frames differ from the eager decode's")
+    check(counts[True] == counts[False],
+          f"launches replayed {counts[True][0]} != eager {counts[False][0]}")
+    ms = {False: [], True: []}
+    for graphed in (True, False, False, True, True, False):
+        for rows in (None, nb):
+            t0 = sync_time()
+            run(graphed, rows)
+            ms[graphed].append((sync_time() - t0) * 1e3)
+    clip = {g: sorted(v[0::2])[1] for g, v in ms.items()}
+    chunk = {g: sorted(v[1::2])[1] for g, v in ms.items()}
+    log(f"[graphs] decode of the clip replayed vs eager: frames equal, "
+        f"launches {counts[True][0]} on both; clip {clip[True]:.1f} vs "
+        f"{clip[False]:.1f} ms, one {nb}-frame chunk {chunk[True]:.2f} vs "
+        f"{chunk[False]:.2f} ms (medians of 3, in turns)")
+
+
 def u8_levels(a, b) -> tuple:
     """max and mean |a - b| of two uint8 stacks (numpy or torch), in
     levels, on the card."""
@@ -1531,12 +1590,17 @@ def phase_readiness(unified: str, parts: Path) -> None:
     # controls, each of which must fail the stage it names
     shuffled = pc.run_parity(pipe, dict(acts,
                                         noise=acts["noise"][::-1].copy()))
+    # the decode's graphs replay the launches they captured: drop them so
+    # that the faulty wrapper is captured, and again so that no later
+    # decode replays it
     real = ws.warp_shared_cuda
     ws.warp_shared_cuda = lambda f, g: real(f, g.to(torch.bfloat16).float())
+    pipe.syn_cast.decode_graphs = None
     try:
         coarse = pc.run_parity(pipe, acts)
     finally:
         ws.warp_shared_cuda = real
+        pipe.syn_cast.decode_graphs = None
     del pipe
     # the recorded latents through the program's own bf16 decode (the
     # default compute dtype), from its bf16 encoding of the image
@@ -2305,6 +2369,7 @@ def main() -> int:
     log(f"[experiment] phase {time.perf_counter() - t0:.1f} s")
     phase_tiny()
     c1 = phase_config1()
+    phase_decode_graphs(c1)
     counts = phase_paths(c1)
     t0 = time.perf_counter()
     phase_mesh(c1)

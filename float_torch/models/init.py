@@ -249,10 +249,14 @@ class ParamTree(nn.Module):
     ``chunk_graphs``: the FMT's ``runtime.sampling.ChunkGraphs``, its
     sampler chunks as CUDA graphs, made at the first chunk sampled on the
     card; freed with the tree.
+    ``decode_graphs``: the synthesis' ``runtime.decode.DecodeGraphs``, its
+    decode chunks as CUDA graphs, made at the first chunk decoded on the
+    card; freed with the tree.
     """
 
     tp_shards = None
     chunk_graphs = None
+    decode_graphs = None
 
     def __init__(self, tree: dict):
         super().__init__()

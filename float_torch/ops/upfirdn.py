@@ -16,21 +16,22 @@ import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=None)
-def _make_blur_kernel_np(k: tuple, upsample_factor: int = 1) -> np.ndarray:
+def _blur_kernel(k: tuple, upsample_factor: int, device) -> torch.Tensor:
     k = np.asarray(k, dtype=np.float32)
     if k.ndim == 1:
         k = np.outer(k, k)
     k = k / k.sum()
     if upsample_factor > 1:
         k = k * (upsample_factor ** 2)
-    return k
+    with torch.inference_mode(False):
+        return torch.from_numpy(k).to(device)
 
 
 def make_blur_kernel(k, upsample_factor: int = 1, device=None) -> torch.Tensor:
     """Normalised outer-product blur kernel, with the ``factor**2`` gain of
-    upsampling blurs."""
-    return torch.from_numpy(
-        _make_blur_kernel_np(tuple(k), upsample_factor)).to(device)
+    upsampling blurs; made once per taps, factor and device and shared
+    (``identity_grid``'s rule: callers must not write to it)."""
+    return _blur_kernel(tuple(k), upsample_factor, device)
 
 
 def upfirdn2d(x: torch.Tensor, kernel: torch.Tensor, up: int = 1,

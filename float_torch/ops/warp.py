@@ -30,20 +30,22 @@ import numpy as np
 import torch
 
 
-@functools.lru_cache(maxsize=16)
-def _identity_grid_np(size: int) -> np.ndarray:
-    xs = np.linspace(-1.0, 1.0, size, dtype=np.float32)
-    gx, gy = np.meshgrid(xs, xs)
-    return np.stack([gx, gy], axis=-1)
-
-
+@functools.lru_cache(maxsize=None)
 def identity_grid(size: int, device=None) -> torch.Tensor:
-    """(H, W, 2) f32 identity sampling grid, xy order.
+    """(H, W, 2) f32 identity sampling grid, xy order, on ``device``: made
+    once per size and device (outside inference mode, so every mode reads
+    it) and shared, so callers must not write to it (``_flow_pred`` adds
+    it out of place).  A grid kept on the device is what lets a CUDA graph
+    capture the decode: a host copy is a synchronize and cannot be
+    captured.
 
     Keeps the reference's ``np.linspace(-1, 1, size)`` (styledecoder.py:
     404-406), which is NOT the pixel-centre grid of align_corners=False:
     the identity flow itself shifts the image by up to half a pixel."""
-    return torch.from_numpy(_identity_grid_np(size)).to(device)
+    xs = np.linspace(-1.0, 1.0, size, dtype=np.float32)
+    gx, gy = np.meshgrid(xs, xs)
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.stack([gx, gy], axis=-1)).to(device)
 
 
 _TAP_LIMIT = float(2 ** 30)

@@ -10,6 +10,7 @@ program, the on-device decode, and the host-delivery loops.
     decode_clips_to_host   several clips in one dispatch stream
     FrameParallel          a chunk's frames split over a mesh's devices
                            (``chunk_fn=`` of each entry point)
+    DecodeGraphs           the chunk program as CUDA graphs, on the card
 
 The TPU decode's D/path ratchets, optimistic and fixup programs, steady
 probe and pessimist switch exist only for the TPU kernels' static tap
@@ -20,28 +21,38 @@ Every entry point consumes one chunk loop, ``_run_chunks``: its caller
 gives the plan of chunk sizes (``chunk_sizes`` for a clip; for a stream
 ``first_chunk_size``, then full chunks), and the loop casts the skip
 maps once, forms and pads each chunk's latents and calls the chunk
-program.  The host paths take its chunks through ``_in_flight``, which
-keeps one chunk in flight: on a CUDA device the copy of chunk c runs on
-a side stream into pinned memory (``_HostCopy``), ordered after chunk c
-by the stream's wait, while chunk c+1 computes, and the host blocks only
-on the chunk it hands out.
+program.  On a card the chunk program is replayed from a CUDA graph
+captured at its shape's first use (``DecodeGraphs``, held by the
+synthesis weights' ``ParamTree``), one graph launch in place of some
+hundreds of launches a chunk; it runs eagerly where no graph applies
+(``decode_graphs``).  The host paths take its chunks through
+``_in_flight``, which keeps one chunk in flight: on a CUDA device the
+copy of chunk c runs on a side stream into pinned memory
+(``_HostCopy``), ordered after chunk c by the stream's wait, while chunk
+c+1 computes, and the host blocks only on the chunk it hands out.
 
 Spans (``utils.profiling``): ``decode.chunk`` around each chunk's
-dispatch, ``wire.pin`` around a copy's pinned allocation and its queueing,
-``wire.wait`` around the host's wait for its bytes.
+dispatch (``graphed``: 1 replayed, 0 eager), ``wire.pin`` around a
+copy's pinned allocation and its queueing, ``wire.wait`` around the
+host's wait for its bytes.
 """
 from __future__ import annotations
 
 import copy
 import itertools
 import math
+import weakref
+from typing import Optional
 
 import numpy as np
 import torch
 
+from ..kernels import CapturedLaunches
+from ..models.init import ParamTree
 from ..models.synthesis import RGB_IN_KERNEL, synthesis
 from ..ops import DISPATCH, Warps, rgb01_to_i420
 from ..utils.profiling import span
+from .cuda_graphs import GraphCache, cache_on, capture_stream, storage
 
 CL = torch.channels_last
 
@@ -93,6 +104,168 @@ def decode_chunk(synthesis_params, wa_chunk, feats, size: int, out_u8=False,
     if out_u8:
         return torch.round(img * 255.0).to(torch.uint8)
     return img
+
+
+def decode_graph_key(wa, feats, *, size: int, out_u8=False,
+                     rgb_in_kernel: bool = RGB_IN_KERNEL,
+                     blur_kernel=(1, 3, 3, 1)) -> tuple:
+    """What a chunk's captured program depends on besides the weights:
+    the latents' shape (B), dtype and device, the skip maps' shapes, the
+    output size and wire (``out_u8``), ``rgb_in_kernel`` and the blur.
+    Not the values of the latents or of the skip maps (the portrait)."""
+    return (tuple(wa.shape), wa.dtype, wa.device,
+            tuple(tuple(f.shape) for f in feats), size, out_u8,
+            rgb_in_kernel, tuple(blur_kernel))
+
+
+class _Clip:
+    """One decode loop's part in the graphs: the storage of its weights
+    and its skip maps, which it loads into the static maps (``_Maps``)
+    while it owns them."""
+
+    def __init__(self, params, feats):
+        self.weights = storage(params)
+        self.feats = feats
+
+
+class _Maps:
+    """The skip maps the graphs read, in the compute dtype and
+    channels_last, as ``_run_chunks`` casts them for an eager chunk:
+    shared by every graph of one dtype and set of shapes, so a clip's maps
+    are written once, not once a graph or a chunk."""
+
+    def __init__(self, feats, dtype, device):
+        self.tensors = [torch.empty(f.shape, dtype=dtype, device=device,
+                                    memory_format=CL) for f in feats]
+        self.owner = None           # a weak reference to the _Clip loaded
+
+    def load(self, clip: _Clip) -> None:
+        """Write ``clip``'s maps unless they are the ones held."""
+        if self.owner is None or self.owner() is not clip:
+            for static, f in zip(self.tensors, clip.feats):
+                static.copy_(f)
+            self.owner = weakref.ref(clip)
+
+
+class _DecodeGraph:
+    """``decode_chunk`` captured as one CUDA graph over a static copy of
+    the latents and the shared static skip maps, in the memory pool
+    ``pool`` (None: a pool of its own).  The chunk first runs eagerly on
+    the device's capture stream, as capturing requires (the kernels'
+    once-per-device set-up, cuDNN's picks and cuBLAS's workspace happen
+    there): those frames are the first chunk's (``first``), so every
+    launch that reaches the card makes frames a caller gets.  The
+    launches the capture counted are counted again at each replay
+    (``kernels.CapturedLaunches``)."""
+
+    def __init__(self, params, wa, maps: _Maps, kw: dict, pool):
+        self.device = wa.device
+        self.wa = wa.clone()
+        self.maps = maps
+
+        def chunk():
+            return decode_chunk(params, self.wa, maps.tensors, **kw)
+        side, lock = capture_stream(self.device)
+        with torch.cuda.device(self.device), lock:
+            here = torch.cuda.current_stream()
+            side.wait_stream(here)
+            with torch.cuda.stream(side):
+                self.first = chunk()
+            self.graph = torch.cuda.CUDAGraph()
+            with CapturedLaunches() as self.launches:
+                with torch.cuda.graph(self.graph, pool=pool, stream=side,
+                                      capture_error_mode="thread_local"):
+                    self.out = chunk()
+            here.wait_stream(side)
+            self.first.record_stream(here)
+            self.done = torch.cuda.Event()
+            self.done.record(here)
+        self.pool = self.graph.pool()
+
+    def __call__(self, wa) -> tuple:
+        """(frames of ``wa`` in a tensor of their own, whether replayed):
+        the capture's own chunk's eager frames, then replays, each copied
+        out of the static output, which the next replay overwrites while
+        a host copy on a side stream may still read the frames handed
+        out before."""
+        if self.first is not None:
+            out, self.first = self.first, None
+            return out, False
+        with torch.cuda.device(self.device):
+            self.wa.copy_(wa)
+            self.launches.replay(self.graph)
+            out = self.out.clone()
+            self.done.record()
+        return out, True
+
+    def order_after(self) -> None:
+        """Make the current stream wait for this graph's last frames to be
+        copied out: its static buffers and the pool are free again."""
+        torch.cuda.current_stream(self.device).wait_event(self.done)
+
+
+class DecodeGraphs(GraphCache):
+    """The decode chunks of one synthesis as CUDA graphs, by
+    ``decode_graph_key``: the ``size`` keys used last (a clip meets two,
+    its full chunks and its last; a stream its ramp and its full chunks).
+    Held by the synthesis' ``ParamTree`` (``decode_graphs``), so the
+    graphs, their static maps and their memory pool go with the weights;
+    weights moved to new storage drop them.
+
+    The graphs share one pool and their static maps.  Each replay's
+    frames are copied out before the next replay is issued, and each
+    chunk's writes of the static buffers and its replay wait for the
+    chunk before it to be copied out (``order_after``), whatever stream
+    either ran on: so no graph reads what another left in the pool, and
+    a clip's maps replace the last clip's only after its last replay."""
+
+    def __init__(self, size: int = 8):
+        super().__init__(size)
+        self.pool = None
+        self.maps = weakref.WeakValueDictionary()   # (dtype, shapes) -> _Maps
+        self.last = None                            # the last graph run
+
+    def fresh(self, weights: tuple) -> None:
+        if weights != self.weights:
+            self.pool = self.last = None
+            self.maps.clear()
+        super().fresh(weights)
+
+    def run(self, params, clip: _Clip, wa, size: int, **kw) -> tuple:
+        """(``decode_chunk(params, wa, clip's maps, size, **kw)``'s frames,
+        whether they were replayed): the chunk's graph is captured at its
+        key's first use."""
+        kw = dict(size=size, **kw)
+        key = decode_graph_key(wa, clip.feats, **kw)
+        with self.lock, torch.inference_mode(False), torch.no_grad():
+            self.fresh(clip.weights)
+            if self.last is not None:
+                self.last.order_after()
+            shapes = (wa.dtype, tuple(tuple(f.shape) for f in clip.feats))
+            maps = self.maps.get(shapes)
+            if maps is None:
+                maps = self.maps[shapes] = _Maps(clip.feats, wa.dtype,
+                                                 wa.device)
+            maps.load(clip)
+            graph = self.get(key, lambda: _DecodeGraph(params, wa, maps, kw,
+                                                       self.pool))
+            self.pool = graph.pool
+            self.last = graph
+            return graph(wa)
+
+
+def decode_graphs(synthesis_params, device: torch.device
+                  ) -> Optional[DecodeGraphs]:
+    """The synthesis' ``DecodeGraphs`` where CUDA graphs can replay its
+    decode chunks on ``device``, else None (the chunks then run op by
+    op): a CUDA device, weights in a ``ParamTree`` held whole on that
+    device, and no capture already under way."""
+    if (device.type != "cuda" or not isinstance(synthesis_params, ParamTree)
+            or any(p.device != device
+                   for p in synthesis_params.parameters())
+            or torch.cuda.is_current_stream_capturing()):
+        return None
+    return cache_on(synthesis_params, "decode_graphs", DecodeGraphs)
 
 
 class FrameParallel:
@@ -175,21 +348,38 @@ def _run_chunks(synthesis_params, s_r, feats, pieces, sizes, *, size: int,
     ``pieces`` and dispatch a chunk for each planned size of ``sizes`` ->
     yield (start frame, valid frames, the chunk's frames on the device).
 
-    The skip maps are cast once (compute dtype, channels_last) at the
-    first chunk; each chunk's wa = s_r + r_d in f32, cast to
-    ``compute_dtype``, is made and decoded by ``chunk_fn`` (else the
-    module's ``decode_chunk``, looked up at each call) within a
-    ``decode.chunk`` span, closed before the chunk is yielded."""
+    Each chunk's wa = s_r + r_d in f32, cast to ``compute_dtype``, is
+    made and decoded within a ``decode.chunk`` span, closed before the
+    chunk is yielded: replayed from the synthesis' graphs where
+    ``decode_graphs`` gives them and no ``chunk_fn`` is passed (the skip
+    maps then written once into the graphs' static maps), else by
+    ``chunk_fn`` (else the module's ``decode_chunk``, looked up at each
+    call) on the skip maps cast once (compute dtype, channels_last) at
+    the first chunk.  The span's ``graphed`` is 1 where the chunk was
+    replayed, else 0."""
     s32 = s_r.float()
-    feats_c = [f.to(compute_dtype).contiguous(memory_format=CL)
-               for f in feats]
+    graphs = None if chunk_fn is not None else decode_graphs(
+        synthesis_params, s32.device)
+    if graphs is None:
+        feats_c = [f.to(compute_dtype).contiguous(memory_format=CL)
+                   for f in feats]
+    else:
+        clip = _Clip(synthesis_params, feats)
+    kw = dict(out_u8=out_u8, rgb_in_kernel=rgb_in_kernel,
+              blur_kernel=blur_kernel)
     start = 0
     for index, (rows, n_valid) in enumerate(_planned_rows(pieces, sizes)):
-        with span("decode.chunk", index=index, frames=rows.shape[0]):
+        with span("decode.chunk", index=index, frames=rows.shape[0],
+                  graphed=0) as open_span:
             wa = (s32 + rows.float()).to(compute_dtype)
-            dev = (chunk_fn or decode_chunk)(
-                synthesis_params, wa, feats_c, size, out_u8=out_u8,
-                rgb_in_kernel=rgb_in_kernel, blur_kernel=blur_kernel)
+            if graphs is None:
+                dev = (chunk_fn or decode_chunk)(synthesis_params, wa,
+                                                 feats_c, size, **kw)
+            else:
+                dev, replayed = graphs.run(synthesis_params, clip, wa, size,
+                                           **kw)
+                if open_span is not None:
+                    open_span.attrs["graphed"] = int(replayed)
         yield start, n_valid, dev
         start += rows.shape[0]
 

@@ -467,9 +467,9 @@ class FloatPipeline:
     def warmup(self, seconds: float = 2.0, first_chunk: int = 8) -> float:
         """Run the serving paths once before the first request: on the
         card this builds the decode's kernel libraries
-        (``kernels.build.build_all(DECODE_SOURCES)``)
-        and lets cuDNN pick its algorithms for the full and first-chunk
-        decode shapes.  One ``generate`` and one ``generate_stream`` per
+        (``kernels.build.build_all(DECODE_SOURCES)``), lets cuDNN pick its
+        algorithms and captures the sampler's and the decode's CUDA graphs
+        for the full and first-chunk decode shapes.  One ``generate`` and one ``generate_stream`` per
         serving wire ("u8" raw, "yuv420" JPEG delivery) on seeded inputs of
         ``seconds`` of audio, closed by a synchronize.  Returns the wall
         seconds spent.  ``cli serve --warm`` calls this before binding the

@@ -18,8 +18,6 @@ the same numbers; the chunks run eagerly where no graph applies
 from __future__ import annotations
 
 import math
-import threading
-from collections import OrderedDict
 from typing import Optional
 
 import torch
@@ -29,9 +27,7 @@ from ..models.fmt import fmt_forward_cfg, infer_cfg_mode
 from ..models.init import ParamTree
 from ..ops import odeint_fixed
 from ..utils.profiling import span
-
-_NEW_GRAPHS = threading.Lock()      # makes ChunkGraphs and capture streams
-_CAPTURE_STREAMS: dict = {}         # device -> (its captures' stream, lock)
+from .cuda_graphs import GraphCache, cache_on, capture_stream, storage
 
 
 def pad_to_chunks(x, frames_per_clip: int, n_chunks: Optional[int] = None):
@@ -131,7 +127,7 @@ class _ChunkGraph:
             return sample_motion_chunk(
                 fmt_params, r_s, wa_t, we_t, tuple(carry), x0,
                 a_cfg_scale=a_s, e_cfg_scale=e_s, r_cfg_scale=r_sc, **kw)[0]
-        side, lock = _capture_stream(self.device)
+        side, lock = capture_stream(self.device)
         with torch.cuda.device(self.device), lock:
             side.wait_stream(torch.cuda.current_stream())
             with torch.cuda.stream(side):
@@ -155,44 +151,15 @@ class _ChunkGraph:
             return self.out.clone()
 
 
-def _capture_stream(device):
-    """The side stream every chunk graph of ``device`` is warmed up and
-    captured on, one a device so that cuBLAS keeps one workspace for
-    them (it keeps one a stream) however many graphs are made, and the
-    lock that keeps two captures off it at once."""
-    with _NEW_GRAPHS:
-        if device not in _CAPTURE_STREAMS:
-            _CAPTURE_STREAMS[device] = (torch.cuda.Stream(device),
-                                        threading.Lock())
-        return _CAPTURE_STREAMS[device]
-
-
-class ChunkGraphs:
+class ChunkGraphs(GraphCache):
     """The sampler chunks of one FMT as CUDA graphs, by ``graph_key``: the
     ``size`` keys used last (nfe and B may come with each request; the
     CFG scales are copied in and key nothing).  Held by the FMT's
     ``ParamTree`` (``chunk_graphs``), so the graphs and their memory
-    pools go with the weights; weights moved to new storage drop them.
-    ``lock`` covers one chunk's copy-in, replay and copy-out: the static
-    buffers are shared by every caller."""
+    pools go with the weights; weights moved to new storage drop them."""
 
     def __init__(self, size: int = 4):
-        self.size = size
-        self.lock = threading.Lock()
-        self.graphs: OrderedDict = OrderedDict()
-        self.weights: tuple = ()        # the storage the graphs read
-
-    def get(self, key, make):
-        """The graph of ``key``, made by ``make()`` where there is none;
-        the least recently used beyond ``size`` are dropped."""
-        graph = self.graphs.get(key)
-        if graph is None:
-            graph = self.graphs[key] = make()
-            while len(self.graphs) > self.size:
-                self.graphs.popitem(last=False)
-        else:
-            self.graphs.move_to_end(key)
-        return graph
+        super().__init__(size)
 
     def run(self, fmt_params, r_s, wa_t, we_t, carry, x0, *,
             cfg: FloatConfig, a_cfg_scale, e_cfg_scale, r_cfg_scale,
@@ -207,11 +174,9 @@ class ChunkGraphs:
                       scales[0], scales[2], scales[1], cfg.include_r_cfg))
         inputs = (r_s, wa_t, we_t, x0, *carry)
         key = graph_key(r_s, wa_t, we_t, carry, x0, **kw)
-        weights = tuple(p.data_ptr() for p in fmt_params.parameters())
+        weights = storage(fmt_params)
         with self.lock, torch.inference_mode(False), torch.no_grad():
-            if weights != self.weights:
-                self.graphs.clear()
-                self.weights = weights
+            self.fresh(weights)
             graph = self.get(key, lambda: _ChunkGraph(fmt_params, inputs,
                                                       scales, kw))
             sample_t = graph(inputs, scales)
@@ -228,10 +193,7 @@ def chunk_graphs(fmt_params, device: torch.device) -> Optional[ChunkGraphs]:
             or any(m.tp_shards for m in fmt_params.modules())
             or torch.cuda.is_current_stream_capturing()):
         return None
-    with _NEW_GRAPHS:
-        if fmt_params.chunk_graphs is None:
-            fmt_params.chunk_graphs = ChunkGraphs()
-    return fmt_params.chunk_graphs
+    return cache_on(fmt_params, "chunk_graphs", ChunkGraphs)
 
 
 def sample_motion_chunks(fmt_params, r_s, wa, we, *, cfg: FloatConfig,

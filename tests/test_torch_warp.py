@@ -19,7 +19,7 @@ from float_tpu.ops.nhwc import grid_sample_bilinear_nhwc
 from float_tpu.ops.pallas.shift_warp_v2 import warp_shared_feat_v2
 from float_torch.kernels import LAUNCHES
 from float_torch.kernels.warp_shared import warp_shared_cuda
-from float_torch.ops.warp import warp_shared, warp_shared_ref
+from float_torch.ops.warp import identity_grid, warp_shared, warp_shared_ref
 from torch_parity import max_err, randn
 
 BF16_FLOOR = 6.3e-2      # tests/test_warp_v2_interpret.py's bf16 bound
@@ -106,6 +106,23 @@ def test_dispatcher_on_cpu_launches_no_kernel():
 def test_kernel_wrapper_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         warp_shared_cuda(torch.zeros(1, 8, 8, 8), torch.zeros(2, 8, 8, 2))
+
+
+@pytest.mark.parametrize("size", [8, 16, 32, 64, 128, 256, 512])
+def test_identity_grid_is_made_once_a_size_and_device(size):
+    """The reference's np.linspace(-1, 1, size) grid in xy order, bit for
+    bit; the same tensor on a second call, made outside inference mode."""
+    xs = np.linspace(-1.0, 1.0, size, dtype=np.float32)
+    gx, gy = np.meshgrid(xs, xs)
+    want = np.stack([gx, gy], axis=-1)
+    cpu = torch.device("cpu")
+    with torch.inference_mode():
+        got = identity_grid(size, device=cpu)
+    assert got.dtype == torch.float32 and got.shape == (size, size, 2)
+    assert not got.is_inference()
+    np.testing.assert_array_equal(got.numpy().view(np.uint32),
+                                  want.view(np.uint32))
+    assert identity_grid(size, device=cpu) is got
 
 
 @pytest.fixture
