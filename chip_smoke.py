@@ -25,10 +25,14 @@ wrappers.  Phases:
    makes its pixel NaN, as in float_tpu); timed at each level and batch
    beside its bound, and at 24 frames beside F.grid_sample;
 3b. K7 (``styled_tail``) at each of the 27 calls of a 24-frame bf16 decode
-   chunk of config 1 (the StyledConv tails and skip upsamplings) against
-   its plain version in f32, each timed beside its bytes bound and the
-   plain bf16 ops it replaces; every path below holds K7 to 27 launches
-   for each chunk's 7 warps;
+   chunk of config 1 (the StyledConv tails and skip upsamplings, each
+   with the modulations the decode has it write) against its plain
+   version in f32, each timed beside its bytes bound and the plain bf16
+   ops it replaces; every path below holds K7 to 27 launches for each
+   chunk's 7 warps;
+3c. K8 (``flow_merge``) at each of the 7 levels of that chunk (the last
+   level's without a merged map) the same way; every path below holds K8
+   to one launch for each chunk's K1 or K3 warp (none for K2's level);
 4. the port on the card against the port on the CPU at a tiny config in
    float32 (TF32 off), stage by stage;
 5. BASELINE config 1 end to end: 617.5 M synthetic parameters, a 512²
@@ -199,6 +203,21 @@ K7_CALLS = (("plain", 4, 512),) + tuple(
 # demodulation, bias and leaky ReLU (3) and its gain; the skip's four
 # taps (a weight, a product and a sum each) and the biases around them.
 K7_OPS = {"up": 18, "plain": 4, "rgb": 16, "flow": 13}
+# The modulation each K7 call of the decode writes with its output:
+# conv1's tail and each up tail their output modulated ("scale"), each
+# level's plain tail its output and ToFlow's modulated input ("scale2"),
+# but the last level's ToFlow's input alone, as nothing reads its map.
+K7_EPILOGUE = {("plain", 4): "scale", ("plain", LEVELS[-1][0]): "scale",
+               "up": "scale", "plain": "scale2"}
+# K8's calls in one decode chunk of config 1, (mode, size, C): each
+# level's merge with the next up conv's modulation, the last level's
+# warped feature alone; and the f32 operations of an output element (the
+# merge's product, difference, product, sum and modulation; the last
+# level's product) beside the mask's sigmoid a pixel (K8_PIXEL_OPS).
+K8_CALLS = tuple(("merge", s, c) for s, c in LEVELS[:-1]) + (
+    ("last",) + LEVELS[-1],)
+K8_OPS = {"merge": 5, "last": 1}
+K8_PIXEL_OPS = 4
 CUDA = "float_torch/kernels/csrc/"
 ROWS = {   # kernel-table rows: the name the wrapper counts launches under
     "K1": {"name": "warp_shared", "route": "cuda",
@@ -224,6 +243,9 @@ ROWS = {   # kernel-table rows: the name the wrapper counts launches under
     # no TPU kernel: float_tpu leaves the blur and its neighbours to XLA
     "K7": {"name": "styled_tail", "route": "cuda",
            "source": CUDA + "styled_tail.cu", "replaces": None},
+    # no TPU kernel: float_tpu leaves the merge to XLA
+    "K8": {"name": "flow_merge", "route": "cuda",
+           "source": CUDA + "flow_merge.cu", "replaces": None},
 }
 NEW_KERNELS = ("warp_per_frame", "warp_rgb")
 # Tolerances.  K1, K3 and K5 round every product and sum in their plain
@@ -577,15 +599,29 @@ def phase_kernels(gen: torch.Generator, parent=None) -> dict:
     return dict(row.json(), max_abs_err=max_err, levels=levels)
 
 
+def k7_epilogue(mode: str, size: int) -> str:
+    """The modulation the decode has K7's call (mode, size) write:
+    ``K7_EPILOGUE``'s, "" for a skip."""
+    return K7_EPILOGUE.get((mode, size), K7_EPILOGUE.get(mode, ""))
+
+
+def rand_scale(gen: torch.Generator, b: int, c: int, dtype) -> torch.Tensor:
+    """A (b, c) modulation of the decode's magnitude (s / sqrt(fan-in))."""
+    return ((torch.rand((b, c), generator=gen, device="cuda") + 0.5)
+            * 0.1).to(dtype)
+
+
 def k7_case(gen: torch.Generator, mode: str, size: int, c: int, b: int,
-            dtype):
+            dtype, epilogue: str = ""):
     """One K7 call of ``K7_CALLS`` at random values: (the dispatcher's
     call, the plain version's in ``dtype``, the plain version's in f32,
     x).  The up tail reads x (b, c, size + 1, size + 1), the others x
     (b, c, size, size); a skip (b, c, size / 2, size / 2); every map
-    channels_last on the card."""
+    channels_last on the card.  A tail's ``epilogue``: "scale" modulates
+    its output, "scale2" (the plain tail) returns it and its modulation
+    (``styled_tail``'s scale and scale2)."""
     from float_torch.ops.tails import (skip_tail, skip_tail_ref,
-                                             styled_tail, styled_tail_ref)
+                                       styled_tail, styled_tail_ref)
 
     def rand(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device="cuda") * scale
@@ -599,9 +635,12 @@ def k7_case(gen: torch.Generator, mode: str, size: int, c: int, b: int,
     if mode in ("up", "plain"):
         demod = torch.rand((b, c), generator=gen, device="cuda") + 0.5
         pad = (1, 1) if mode == "up" else None
-        return (lambda: styled_tail(x, demod, bias, pad),
-                lambda: styled_tail_ref(x, demod, bias, pad),
-                lambda: styled_tail_ref(x.float(), demod, bias.float(), pad),
+        kw = {epilogue: rand_scale(gen, b, c, dtype)} if epilogue else {}
+        kw32 = {k: v.float() for k, v in kw.items()}
+        return (lambda: styled_tail(x, demod, bias, pad, **kw),
+                lambda: styled_tail_ref(x, demod, bias, pad, **kw),
+                lambda: styled_tail_ref(x.float(), demod, bias.float(), pad,
+                                        **kw32),
                 x)
     skip = cl(rand(b, c, size // 2, size // 2))
     act = rand(c, scale=0.5).to(dtype) if mode == "rgb" else None
@@ -632,41 +671,61 @@ def k7_error(got: torch.Tensor, want: torch.Tensor, x: torch.Tensor) -> float:
     return (diff / tol).max().item()
 
 
-def k7_bound(mode: str, size: int, c: int, b: int, esize: int):
-    """Bound of one K7 call: x and the skip read once, the output written
-    once (the (B, C) demodulation and the biases are counted too)."""
+def outputs_error(got, want, x: torch.Tensor) -> float:
+    """``k7_error`` of a call's one output map, or the largest over its
+    tuple of them (None on both sides is no error)."""
+    if not isinstance(want, tuple):
+        return k7_error(got, want, x)
+    if not isinstance(got, tuple) or len(got) != len(want):
+        return math.inf
+    return max(0.0 if w is None and g is None else
+               math.inf if w is None or g is None else k7_error(g, w, x)
+               for g, w in zip(got, want))
+
+
+def k7_bound(mode: str, size: int, c: int, b: int, esize: int,
+             epilogue: str = ""):
+    """Bound of one K7 call: x and the skip read once, the output (and a
+    scale2 call's second output) written once (the (B, C) demodulation,
+    scales and biases are counted too)."""
     n_out = b * size * size * c
     n_in = b * (size + (mode == "up")) ** 2 * c
     n_skip = b * (size // 2) ** 2 * c if mode in ("rgb", "flow") else 0
-    n_bytes = ((n_in + n_out + n_skip) * esize + b * c * 4 + 2 * c * esize)
-    return bound(n_bytes, n_out * K7_OPS[mode])
+    n_out2 = n_out if epilogue == "scale2" else 0
+    n_bytes = ((n_in + n_out + n_out2 + n_skip) * esize + b * c * 4
+               + 2 * c * esize + (b * c * esize if epilogue else 0))
+    return bound(n_bytes, (n_out + n_out2) * K7_OPS[mode])
 
 
 def phase_styled_tail(gen: torch.Generator) -> dict:
-    """K7 at every call of a 24-frame bf16 decode chunk of config 1 against
-    its plain version in f32 (``k7_error``), then its row: the
-    chunk's 27 calls, each timed beside its bound and the plain ops in
-    bf16 (the sequence K7 replaces)."""
+    """K7 at every call of a 24-frame bf16 decode chunk of config 1, with
+    the modulations the decode has it write (``k7_epilogue``), against
+    its plain version in f32 (``k7_error``), then its row: the chunk's 27
+    calls, each timed beside its bound and the plain ops in bf16 (the
+    sequence K7 replaces)."""
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False
     row, calls, max_err = Row(), [], 0.0
     try:
         for mode, size, c in K7_CALLS:
+            ep = k7_epilogue(mode, size)
             k7, plain, plain32, x = k7_case(gen, mode, size, c, 24,
-                                            torch.bfloat16)
-            err = k7_error(k7(), plain32(), x)
+                                            torch.bfloat16, ep)
+            err = outputs_error(k7(), plain32(), x)
             max_err = max(max_err, err)
-            check(err <= 1, f"styled_tail {mode} {size}^2 C={c}: {err:.3g} "
-                  f"of its tolerance from the plain version in f32")
-            bnd = k7_bound(mode, size, c, 24, x.element_size())
+            check(err <= 1, f"styled_tail {mode}{ep and ' ' + ep} {size}^2 "
+                  f"C={c}: {err:.3g} of its tolerance from the plain version "
+                  f"in f32")
+            bnd = k7_bound(mode, size, c, 24, x.element_size(), ep)
             iters = 200 if x.numel() * 2 < 64 << 20 else 50
             ms = graph_ms(k7, iters=iters)
             p = event_ms(plain, iters=5)
             row.add(ms, p, 0.0, bnd)
-            calls.append({"mode": mode, "size": size, "c": c, "ms": ms,
-                          "plain_ms": p, "bound_ms": bnd[0],
+            calls.append({"mode": mode, "epilogue": ep, "size": size, "c": c,
+                          "ms": ms, "plain_ms": p, "bound_ms": bnd[0],
                           "bound_by": bnd[1]})
-            log(f"[kernel] styled_tail {mode} {size}^2 C={c} B=24 bf16: "
+            log(f"[kernel] styled_tail {mode}{ep and ' ' + ep} {size}^2 C={c} "
+                f"B=24 bf16: "
                 f"kernel {ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
                 f"{bnd[0] / ms:.1%} of bound; plain {p:.4f} ms; error "
                 f"{err:.3g} of its tolerance")
@@ -674,6 +733,81 @@ def phase_styled_tail(gen: torch.Generator) -> dict:
         torch.backends.cudnn.allow_tf32 = tf32
     bnd = sum(row.bound.values())
     log(f"[kernel] one 24-frame chunk's {len(K7_CALLS)} styled tails: kernel "
+        f"{row.ms:.4f} ms, plain {row.plain_ms:.4f} ms, bound {bnd:.4f} ms, "
+        f"{bnd / row.ms:.1%} of bound")
+    return dict(row.json(), max_err=max_err, calls=calls)
+
+
+def k8_case(gen: torch.Generator, mode: str, size: int, c: int, b: int,
+            dtype, warp: str = "shared", mask: str = "smooth"):
+    """One K8 call of ``K8_CALLS`` at random values: (the dispatcher's
+    call, the plain version's in ``dtype``, the plain version's in f32,
+    x), each returning (feat_warp, merged or None).  warped is K1's output
+    of one (1, size, size, c) map (``warp`` "shared") or K3's of b maps
+    ("per_frame") on a smooth grid; ToFlow's raw output (b, 3, size,
+    size) channels_last, as K7's skip writes it, its mask channel N(0, 4)
+    ("smooth") or +-40 ("saturated": a mask of 0 or 1); the merge
+    modulated by a (b, c) scale, none for the last level."""
+    from float_torch.ops.tails import flow_merge, flow_merge_ref
+    from float_torch.ops.warp import warp_per_frame, warp_shared
+
+    def cl(t):
+        return t.to(dtype).contiguous(memory_format=torch.channels_last)
+
+    feat = rand_feat(gen, 1 if warp == "shared" else b, size, c, dtype)
+    grid = make_grid("smooth", b, size, gen)
+    warped = (warp_shared if warp == "shared" else warp_per_frame)(
+        feat, grid).permute(0, 3, 1, 2)
+    x = cl(torch.randn((b, c, size, size), generator=gen, device="cuda"))
+    z = torch.randn((b, 3, size, size), generator=gen, device="cuda")
+    out = cl(z * 2.0 if mask == "smooth" else torch.sign(z) * 40.0)
+    scale = None if mode == "last" else rand_scale(gen, b, c, dtype)
+    s32 = None if scale is None else scale.float()
+    xk = None if scale is None else x       # the last level reads no x
+    return (lambda: flow_merge(warped, out, xk, scale),
+            lambda: flow_merge_ref(warped, out, xk, scale),
+            lambda: flow_merge_ref(warped.float(), out.float(), x.float(),
+                                   s32),
+            x)
+
+
+def k8_bound(mode: str, size: int, c: int, b: int, esize: int):
+    """Bound of one K8 call: the maps it needs read once and its outputs
+    written once (the merge: warped and x read, feat_warp and merged
+    written; the last level: warped read, feat_warp written), with the
+    mask channel and the (B, C) scale."""
+    px = b * size * size
+    maps = 4 if mode == "merge" else 2
+    n_bytes = (maps * px * c + px + (b * c if mode == "merge" else 0)) * esize
+    return bound(n_bytes, px * (c * K8_OPS[mode] + K8_PIXEL_OPS))
+
+
+def phase_flow_merge(gen: torch.Generator) -> dict:
+    """K8 at every level of a 24-frame bf16 decode chunk of config 1
+    against its plain version in f32 (``outputs_error``), then its row:
+    the chunk's 7 calls, each timed beside its bound and the plain ops in
+    bf16 (the sequence K8 replaces)."""
+    row, calls, max_err = Row(), [], 0.0
+    for mode, size, c in K8_CALLS:
+        k8, plain, plain32, x = k8_case(gen, mode, size, c, 24,
+                                        torch.bfloat16)
+        err = outputs_error(k8(), plain32(), x)
+        max_err = max(max_err, err)
+        check(err <= 1, f"flow_merge {mode} {size}^2 C={c}: {err:.3g} of its "
+              f"tolerance from the plain version in f32")
+        bnd = k8_bound(mode, size, c, 24, x.element_size())
+        iters = 200 if x.numel() * 2 < 64 << 20 else 50
+        ms = graph_ms(k8, iters=iters)
+        p = event_ms(plain, iters=5)
+        row.add(ms, p, 0.0, bnd)
+        calls.append({"mode": mode, "size": size, "c": c, "ms": ms,
+                      "plain_ms": p, "bound_ms": bnd[0], "bound_by": bnd[1]})
+        log(f"[kernel] flow_merge {mode} {size}^2 C={c} B=24 bf16: kernel "
+            f"{ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+            f"{bnd[0] / ms:.1%} of bound; plain {p:.4f} ms; error {err:.3g} "
+            f"of its tolerance")
+    bnd = sum(row.bound.values())
+    log(f"[kernel] one 24-frame chunk's {len(K8_CALLS)} flow merges: kernel "
         f"{row.ms:.4f} ms, plain {row.plain_ms:.4f} ms, bound {bnd:.4f} ms, "
         f"{bnd / row.ms:.1%} of bound")
     return dict(row.json(), max_err=max_err, calls=calls)
@@ -1086,6 +1220,10 @@ def phase_config1() -> dict:
     check(launches.get("styled_tail", 0) == len(K7_CALLS) * n_chunks,
           f"styled_tail launched {launches} times in the timed run, "
           f"expected {len(K7_CALLS) * n_chunks}")
+    check(k8_launches(launches) == len(K8_CALLS) * n_chunks
+          and k8_launches_fit(launches),
+          f"flow_merge launched {launches} times in the timed run, "
+          f"expected {len(K8_CALLS) * n_chunks}, one last level a chunk")
     check(not any(launches.get(k, 0) for k in NEW_KERNELS),
           f"the default generate launched {launches}, expected only "
           f"warp_shared")
@@ -1193,6 +1331,27 @@ def k7_launches_fit(launches: dict) -> bool:
         == warps * len(K7_CALLS)
 
 
+def k8_names() -> tuple:
+    """K8's launch names: the merge's and the last level's."""
+    from float_torch.kernels import flow_merge
+    return flow_merge.NAME, flow_merge.NAME_LAST
+
+
+def k8_launches(launches: dict) -> int:
+    return sum(launches.get(k, 0) for k in k8_names())
+
+
+def k8_launches_fit(launches: dict) -> bool:
+    """Each 512² decode chunk merges once a K1 or K3 warp (none at K2's
+    level): 6 merges with the next level's modulation and one last
+    level's, which K2's level takes instead."""
+    warps = sum(launches.get(k, 0) for k in ("warp_shared", "warp_per_frame"))
+    chunks, odd = divmod(warps + launches.get("warp_rgb", 0), len(LEVELS))
+    return (not odd and k8_launches(launches) == warps
+            and launches.get(k8_names()[0], 0)
+            == (len(LEVELS) - 1) * chunks)
+
+
 def run_path(name: str, fn, want: dict, want_k4: int):
     """Run ``fn`` with every launch count at 0 before it; check the counts
     read right after against ``want`` (kernels not named must be 0) and
@@ -1211,7 +1370,12 @@ def run_path(name: str, fn, want: dict, want_k4: int):
           f"{name}: {got.get('styled_tail', 0)} styled_tail launches, "
           f"expected {len(K7_CALLS)} for each decode chunk's "
           f"{len(LEVELS)} warps")
-    got.pop("styled_tail", None)
+    check(k8_launches_fit(got),
+          f"{name}: flow_merge launches {[got.get(k, 0) for k in k8_names()]}, "
+          f"expected one for each decode chunk's K1 or K3 warp, the last "
+          f"level's without a merged map")
+    for k in ("styled_tail",) + k8_names():
+        got.pop(k, None)
     check(got == {k: v for k, v in want.items() if v},
           f"{name}: launches {got}, expected {want}")
     check(k4 == want_k4,
@@ -2363,6 +2527,7 @@ def main() -> int:
     gen.manual_seed(0)
     rows = {"K1": phase_kernels(gen, parent)}
     rows["K7"] = phase_styled_tail(gen)
+    rows["K8"] = phase_flow_merge(gen)
     rows.update(phase_kernel_variants(gen, parent))
     t0 = time.perf_counter()
     rows.update(phase_experiments(gen, parent))
@@ -2392,15 +2557,17 @@ def main() -> int:
                 "K5": PATHS["experiment warp_selection_matmul"].get(
                     "warp_window", 0),
                 "K6": PATHS["experiment fma_dtype_bench"].get("fma_dtype", 0),
-                "K7": c1["launches"].get("styled_tail", 0)}
+                "K7": c1["launches"].get("styled_tail", 0),
+                "K8": k8_launches(c1["launches"])}
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed")
         return 1
     names = {"K1": "warp_shared", "K2": "warp_rgb", "K3": "warp_per_frame",
              "K4": "K4", "K5": "warp_window", "K6": "fma_dtype",
-             "K7": "styled_tail"}
+             "K7": "styled_tail", "K8": k8_names()}
     kernels = [dict(ROWS[k], launches=launches[k], **rows[k],
-                    launches_by_path={p: c.get(names[k], 0)
+                    launches_by_path={p: k8_launches(c) if k == "K8"
+                                      else c.get(names[k], 0)
                                       for p, c in PATHS.items()})
                for k in ROWS]
     log(json.dumps({"kernels": kernels}))

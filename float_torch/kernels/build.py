@@ -22,8 +22,9 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "float_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # every kernel library of the package, one per csrc/<name>.cu: the
-# decode's warps and styled tails, then the two experiments' kernels
-DECODE_SOURCES = ("warp_shared", "warp_rgb", "styled_tail")
+# decode's warps, styled tails and flow merge, then the two experiments'
+# kernels
+DECODE_SOURCES = ("warp_shared", "warp_rgb", "styled_tail", "flow_merge")
 SOURCES = DECODE_SOURCES + ("warp_window", "fma_dtype")
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -9,6 +9,10 @@
 //               with the up-2 gain, i.e. the outer product of (1, 3, 3, 1)
 //               / 4 per axis; out (B, Ho, Wo, C);
 //   plain tail  x (B, Ho, Wo, C): out = lrelu(demod * x + bias) * sqrt(2);
+//   either tail may end in the next convolution's modulation: out times
+//               scale (B, C), or (the plain tail) out2 = out times scale2
+//               (B, C) beside out, both in x's dtype: the input of the
+//               convolution that reads it, already modulated;
 //   skip        x (B, Ho, Wo, C) (a level's RGB or flow output), skip
 //               (B, Ho / 2, Wo / 2, C):
 //                 out = act(x) + bias + up2(skip)
@@ -19,7 +23,8 @@
 //   lrelu(v) = v >= 0 ? v : 0.2 v (NaN stays NaN).
 //
 // Plain versions: float_torch/ops/tails.py styled_tail_ref (demod
-// multiply, upfirdn2d, fused_leaky_relu) and skip_tail_ref
+// multiply, upfirdn2d, fused_leaky_relu; then the modulation x * s that
+// float_torch/ops/modulated.py modulate runs) and skip_tail_ref
 // (fused_leaky_relu, bias add, upsample2x, add).  The kernel replaces no
 // TPU kernel: float_tpu leaves these ops to XLA, which fuses them.  On the
 // card they were cuDNN's grouped depthwise blur, the layout transforms
@@ -50,7 +55,10 @@
 //     thread, or the input rows staged in shared memory by cp.async
 //     behind a barrier a row (106 registers, two blocks an SM), were
 //     slower;
-//   - demod and bias are read once a thread;
+//   - demod, bias and the scales are read once a thread; a scaled output
+//     costs no more bytes than an unscaled one, and out2 one map written.
+//     The output's scale is folded into demod and bias (lrelu_signed),
+//     and each epilogue is a form of its own (Epilogue);
 //   - the skip mode, 3 channels, one element a thread.
 
 #include "warp_common.cuh"
@@ -81,6 +89,16 @@ __device__ __forceinline__ float lrelu(float v) {
   return (v >= 0.0f ? v : v * kSlope) * kGain;
 }
 
+// lrelu(u) * s = sign(s) * max(w, 0.2 w), w = u * |s| * sqrt(2): leaky
+// ReLU is positively homogeneous.  So a scale folds into the demodulation
+// and bias (w), its sign is one bit a channel (sign: channel i's at bit
+// 31 - i), and the product costs two operations, no more than lrelu's.
+__device__ __forceinline__ float lrelu_signed(float w, unsigned sign,
+                                              int i) {
+  return __uint_as_float(__float_as_uint(fmaxf(w, w * kSlope)) ^
+                         ((sign << i) & 0x80000000u));
+}
+
 __device__ __forceinline__ void prefetch_l2(const void* p) {
   asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
 }
@@ -89,14 +107,22 @@ inline bool aligned16(const void* p) {
   return (reinterpret_cast<unsigned long long>(p) & 15ull) == 0;
 }
 
+// A tail's epilogue: none; its output times scale (folded into the
+// demodulation and bias, lrelu_signed); or out2 = its output times scale2
+// beside it.  A template argument, so each form holds only its own
+// registers: the up tail without an epilogue holds 64 a thread (four
+// blocks an SM) and slows by a quarter at a fifth of its registers more.
+enum Epilogue { kNone, kScale, kOut2 };
+
 // Block (x, y, b): threads x * kThreads + threadIdx.x of frame b, output
 // rows [y * kRows, y * kRows + kRows); thread t takes vector g = t % G of
-// column t / G, G = C / L::N.
-template <typename T, typename L, bool UP>
-__global__ void __launch_bounds__(kThreads)
+// column t / G, G = C / L::N.  The up tail keeps to four blocks an SM.
+template <typename T, typename L, bool UP, Epilogue EPI>
+__global__ void __launch_bounds__(kThreads, UP ? 4 : 1)
     tail_kernel(const T* __restrict__ x, const float* __restrict__ demod,
-                const T* __restrict__ bias, T* __restrict__ out, int Ho,
-                int Wo, int C) {
+                const T* __restrict__ bias, const T* __restrict__ scale,
+                const T* __restrict__ scale2, T* __restrict__ out2,
+                T* __restrict__ out, int Ho, int Wo, int C) {
   constexpr int V = L::N;
   const int G = C / V;
   const int t = static_cast<int>(blockIdx.x) * kThreads + threadIdx.x;
@@ -113,12 +139,25 @@ __global__ void __launch_bounds__(kThreads)
   T* dst = out + static_cast<long long>(b) * Ho * row_out +
            static_cast<long long>(xo) * C + c0;
 
+  // kScale: |scale| * sqrt(2) folded into dm and bs, its signs in sign
   float dm[V], bs[V];
+  unsigned sign = 0;
+  const long long bc = static_cast<long long>(b) * C + c0;
 #pragma unroll
   for (int i = 0; i < V; ++i) {
-    dm[i] = demod[static_cast<long long>(b) * C + c0 + i];
+    dm[i] = demod[bc + i];
     bs[i] = widen(bias[c0 + i]);
+    if constexpr (EPI == kScale) {
+      const float sc = widen(scale[bc + i]);
+      const float a = fabsf(sc) * kGain;
+      dm[i] *= a;
+      bs[i] *= a;
+      sign |= (__float_as_uint(sc) & 0x80000000u) >> i;
+    }
   }
+  auto act = [&](float v, int i) {
+    return EPI == kScale ? lrelu_signed(v, sign, i) : lrelu(v);
+  };
 
   if constexpr (!UP) {
 #pragma unroll
@@ -128,8 +167,13 @@ __global__ void __launch_bounds__(kThreads)
         float v[V];
         L::load(src + y * row_in + static_cast<long long>(xo) * C, v);
 #pragma unroll
-        for (int i = 0; i < V; ++i) v[i] = lrelu(v[i] * dm[i] + bs[i]);
+        for (int i = 0; i < V; ++i) v[i] = act(v[i] * dm[i] + bs[i], i);
         L::store(dst + y * row_out, v);
+        if constexpr (EPI == kOut2) {
+#pragma unroll
+          for (int i = 0; i < V; ++i) v[i] *= widen(scale2[bc + i]);
+          L::store(out2 + (dst - out) + y * row_out, v);
+        }
       }
     }
   } else {
@@ -165,7 +209,7 @@ __global__ void __launch_bounds__(kThreads)
           const float s = tap(0) * h[(r + 1) % 4][i] +
                           tap(1) * h[(r + 2) % 4][i] +
                           tap(2) * h[(r + 3) % 4][i] + tap(3) * hr[i];
-          o[i] = lrelu(s * dm[i] + bs[i]);
+          o[i] = act(s * dm[i] + bs[i], i);
         }
         L::store(dst + yo * row_out, o);
       }
@@ -218,6 +262,7 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T, typename L>
 cudaError_t launch_tail(const void* x, const void* demod, const void* bias,
+                        const void* scale, const void* scale2, void* out2,
                         void* out, int B, int Ho, int Wo, int C, bool up,
                         cudaStream_t stream) {
   const long long n = static_cast<long long>(Wo) * (C / L::N);
@@ -230,27 +275,43 @@ cudaError_t launch_tail(const void* x, const void* demod, const void* bias,
   const T* xp = static_cast<const T*>(x);
   const float* dp = static_cast<const float*>(demod);
   const T* bp = static_cast<const T*>(bias);
+  const T* sp = static_cast<const T*>(scale);
+  const T* s2p = static_cast<const T*>(scale2);
+  T* o2p = static_cast<T*>(out2);
   T* op = static_cast<T*>(out);
+  const Epilogue epi = out2 != nullptr ? kOut2 : scale != nullptr ? kScale
+                                                                   : kNone;
+#define K7_TAIL(UP_, EPI_)                                                 \
+  tail_kernel<T, L, UP_, EPI_><<<blocks, kThreads, 0, stream>>>(           \
+      xp, dp, bp, sp, s2p, o2p, op, Ho, Wo, C)
   if (up) {
-    tail_kernel<T, L, true><<<blocks, kThreads, 0, stream>>>(xp, dp, bp, op,
-                                                             Ho, Wo, C);
+    if (epi == kScale) {
+      K7_TAIL(true, kScale);
+    } else {
+      K7_TAIL(true, kNone);
+    }
+  } else if (epi == kScale) {
+    K7_TAIL(false, kScale);
+  } else if (epi == kOut2) {
+    K7_TAIL(false, kOut2);
   } else {
-    tail_kernel<T, L, false><<<blocks, kThreads, 0, stream>>>(xp, dp, bp, op,
-                                                              Ho, Wo, C);
+    K7_TAIL(false, kNone);
   }
+#undef K7_TAIL
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t tail(const void* x, const void* demod, const void* bias,
-                 void* out, int B, int Ho, int Wo, int C, bool up,
-                 cudaStream_t stream) {
-  if (C % Vec<T>::N == 0 && aligned16(x) && aligned16(out)) {
-    return launch_tail<T, Vec<T>>(x, demod, bias, out, B, Ho, Wo, C, up,
-                                  stream);
+                 const void* scale, const void* scale2, void* out2, void* out,
+                 int B, int Ho, int Wo, int C, bool up, cudaStream_t stream) {
+  if (C % Vec<T>::N == 0 && aligned16(x) && aligned16(out) &&
+      (out2 == nullptr || aligned16(out2))) {
+    return launch_tail<T, Vec<T>>(x, demod, bias, scale, scale2, out2, out,
+                                  B, Ho, Wo, C, up, stream);
   }
-  return launch_tail<T, Scalar<T>>(x, demod, bias, out, B, Ho, Wo, C, up,
-                                   stream);
+  return launch_tail<T, Scalar<T>>(x, demod, bias, scale, scale2, out2, out,
+                                   B, Ho, Wo, C, up, stream);
 }
 
 template <typename T>
@@ -270,15 +331,22 @@ cudaError_t skip_up(const void* x, const void* skip, const void* act_bias,
 }  // namespace
 
 // The up or plain tail (up 1 or 0): x (B, Ho + up, Wo + up, C), demod
-// (B, C) f32, bias (C), out (B, Ho, Wo, C); x, bias, out of dtype 0 bf16,
-// 1 f32.  The caller checks shapes, dtypes, devices and contiguity.
-// Returns a cudaError_t: cudaErrorInvalidValue for a negative size or an
-// unknown dtype, cudaErrorInvalidConfiguration for a grid too large.
+// (B, C) f32, bias (C), scale (B, C) or null, out (B, Ho, Wo, C); on the
+// plain tail without scale, out2 (B, Ho, Wo, C) with its scale2 (B, C), or
+// both null; x, bias, the scales and outputs of dtype 0 bf16, 1 f32.  The
+// caller checks shapes, dtypes, devices and contiguity.  Returns a
+// cudaError_t:
+// cudaErrorInvalidValue for a negative size, an unknown dtype or an out2
+// without its scale2, beside a scale or on the up tail,
+// cudaErrorInvalidConfiguration for a grid too large.
 extern "C" int styled_tail_launch(const void* x, const void* demod,
-                                  const void* bias, void* out, int B, int Ho,
-                                  int Wo, int C, int up, int dtype,
-                                  int device, void* stream) {
-  if (B < 0 || Ho < 0 || Wo < 0 || C < 0 || (dtype != 0 && dtype != 1)) {
+                                  const void* bias, const void* scale,
+                                  const void* scale2, void* out2, void* out,
+                                  int B, int Ho, int Wo, int C, int up,
+                                  int dtype, int device, void* stream) {
+  if (B < 0 || Ho < 0 || Wo < 0 || C < 0 || (dtype != 0 && dtype != 1) ||
+      (out2 != nullptr &&
+       (scale2 == nullptr || scale != nullptr || up != 0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B == 0 || Ho == 0 || Wo == 0 || C == 0) return 0;
@@ -286,8 +354,10 @@ extern "C" int styled_tail_launch(const void* x, const void* demod,
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = dtype == 0
-            ? tail<bf16>(x, demod, bias, out, B, Ho, Wo, C, up != 0, s)
-            : tail<float>(x, demod, bias, out, B, Ho, Wo, C, up != 0, s);
+            ? tail<bf16>(x, demod, bias, scale, scale2, out2, out, B, Ho, Wo,
+                         C, up != 0, s)
+            : tail<float>(x, demod, bias, scale, scale2, out2, out, B, Ho, Wo,
+                          C, up != 0, s);
   return static_cast<int>(err);
 }
 

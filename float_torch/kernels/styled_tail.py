@@ -1,7 +1,9 @@
 """ctypes wrappers of K7 (``csrc/styled_tail.cu``): the decode's StyledConv
-tails (``styled_tail_cuda``, up or plain) and skip upsamplings
-(``skip_tail_cuda``) on channels_last maps.  Their plain PyTorch versions
-are ``float_torch.ops.tails.styled_tail_ref`` and ``skip_tail_ref``.
+tails (``styled_tail_cuda``, up or plain, either ending in the next
+convolutions' modulations) and skip upsamplings (``skip_tail_cuda``) on
+channels_last maps.  Their plain PyTorch versions are
+``float_torch.ops.tails.styled_tail_ref`` (with ``ops.modulated.modulate``)
+and ``skip_tail_ref``.
 
 Maps are NCHW tensors held in ``torch.channels_last`` memory, as the
 synthesis holds them; each result is one too (an NHWC buffer seen through
@@ -27,7 +29,7 @@ def _lib() -> ctypes.CDLL:
     lib = load(LIB)
     ints = [ctypes.c_int] * 4                        # B, Ho, Wo, C
     tail = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]  # dtype, device, stream
-    lib.styled_tail_launch.argtypes = ([ctypes.c_void_p] * 4 + ints
+    lib.styled_tail_launch.argtypes = ([ctypes.c_void_p] * 7 + ints
                                        + [ctypes.c_int] + tail)
     lib.skip_tail_launch.argtypes = [ctypes.c_void_p] * 5 + ints + tail
     for fn in (lib.styled_tail_launch, lib.skip_tail_launch):
@@ -83,33 +85,52 @@ def _run(entry: str, ptrs: tuple, out: torch.Tensor,
     return out.permute(0, 3, 1, 2)
 
 
-def _check_map(x: torch.Tensor) -> torch.Tensor:
+def _check_map(x: torch.Tensor, name: str = NAME) -> torch.Tensor:
     if not x.is_cuda or x.dtype not in DTYPE_CODE:
-        raise TypeError(f"{NAME} takes a bf16/f32 CUDA map, got {x.dtype} "
+        raise TypeError(f"{name} takes a bf16/f32 CUDA map, got {x.dtype} "
                         f"on {x.device}")
     return _nhwc("x", x, x.device)
 
 
+def _per_frame(name: str, v: torch.Tensor, b: int, c: int, dtype,
+               device) -> torch.Tensor:
+    """Raise unless ``v`` is a contiguous (b, c) tensor of ``dtype`` on
+    ``device``."""
+    if v.dtype != dtype or tuple(v.shape) != (b, c) \
+            or not v.is_contiguous() or v.device != device:
+        raise ValueError(f"{name} must be a contiguous ({b}, {c}) {dtype} "
+                         f"tensor on {device}, got {v.dtype} "
+                         f"{tuple(v.shape)} on {v.device}")
+    return v
+
+
 def styled_tail_cuda(x: torch.Tensor, demod: torch.Tensor,
-                     bias: torch.Tensor, up: bool) -> torch.Tensor:
+                     bias: torch.Tensor, up: bool,
+                     scale: torch.Tensor | None = None,
+                     scale2: torch.Tensor | None = None):
     """K7's tails: x (B, C, Hi, Wi) channels_last bf16|f32 on a card,
-    demod (B, C) f32, bias (C values) -> (B, C, Ho, Wo) channels_last in
+    demod (B, C) f32, bias (C values) -> y (B, C, Ho, Wo) channels_last in
     x's dtype: lrelu(demod * fir(x) + bias) * sqrt(2), fir the up conv's
     pad-(1, 1) 4x4 blur with Ho, Wo = Hi - 1, Wi - 1 (``up``), else the
-    identity.  Raises on anything else."""
+    identity; times ``scale`` (B, C) in x's dtype where given.  With
+    ``scale2`` (B, C) instead (the plain tail only) -> (y, y times
+    scale2).  Raises on anything else."""
     xn = _check_map(x)
     b, hi, wi, c = xn.shape
-    if demod.dtype != torch.float32 or tuple(demod.shape) != (b, c) \
-            or not demod.is_contiguous() or demod.device != x.device:
-        raise ValueError(f"demod must be a contiguous ({b}, {c}) f32 tensor "
-                         f"on {x.device}, got {demod.dtype} "
-                         f"{tuple(demod.shape)} on {demod.device}")
+    _per_frame("demod", demod, b, c, torch.float32, x.device)
+    scales = [None if v is None else
+              _per_frame(name, v, b, c, x.dtype, x.device).data_ptr()
+              for name, v in (("scale", scale), ("scale2", scale2))]
+    if scale2 is not None and (up or scale is not None):
+        raise ValueError("scale2 takes the plain tail and no scale")
     bias = _vector("bias", bias, c, x.dtype, x.device)
     ho, wo = (max(hi - 1, 0), max(wi - 1, 0)) if up else (hi, wi)
     out = torch.empty((b, ho, wo, c), dtype=x.dtype, device=x.device)
-    return _run("styled_tail_launch",
-                (xn.data_ptr(), demod.data_ptr(), bias.data_ptr()), out,
-                (int(up),))
+    out2 = None if scale2 is None else torch.empty_like(out)
+    y = _run("styled_tail_launch",
+             (xn.data_ptr(), demod.data_ptr(), bias.data_ptr(), *scales,
+              None if out2 is None else out2.data_ptr()), out, (int(up),))
+    return y if out2 is None else (y, out2.permute(0, 3, 1, 2))
 
 
 def skip_tail_cuda(x: torch.Tensor, skip: torch.Tensor, bias: torch.Tensor,

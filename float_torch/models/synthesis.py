@@ -24,7 +24,15 @@ flows through ``warps`` (``ops.warp.DISPATCH`` by default):
 Everything a StyledConv runs after its convolution, and each level's
 2x-upsampled skip with the biases around it, goes through ``ops.tails``:
 one K7 pass (``kernels/csrc/styled_tail.cu``) on a card's channels_last
-maps, the plain ops elsewhere.
+maps, the plain ops elsewhere; so does each level's flow merge (K8,
+``kernels/csrc/flow_merge.cu``).  Every modulated conv's style terms
+depend on the latents alone and are computed up front (``_modulations``),
+so each conv's input is written already modulated by whatever makes it:
+conv1's tail (level 0's up conv), an up tail (the plain conv), a plain
+tail's second output (ToFlow) and the previous level's merge (the up
+conv).  Off the card each modulation runs as the plain ``x * s`` right
+after the op that makes its input: the same products, bit for bit, as a
+synthesis whose convs modulate their own inputs.
 
 With ``rgb_in_kernel`` the last level, when shared, warps and contracts
 its 1×1 ToRGB in one kernel (``warps.rgb``, K2), so its (B, S, S, C)
@@ -37,8 +45,10 @@ import math
 
 import torch
 
-from ..ops import (DISPATCH, Warps, equal_conv2d, identity_grid,
-                   modulated_conv2d, skip_tail, styled_conv2d)
+from ..ops import (DISPATCH, Warps, equal_conv2d, identity_grid, skip_tail)
+from ..ops.modulated import (modulated_conv2d_pre, modulation,
+                             styled_conv2d_pre)
+from ..ops.tails import flow_mask, flow_merge, modulate
 
 CL = torch.channels_last
 
@@ -59,13 +69,32 @@ def direction(params, alpha):
     return alpha.float() @ q.to(alpha.device).t()
 
 
-def _styled_conv(x, style, p, up: bool, blur_kernel=(1, 3, 3, 1)):
-    """StyledConv: modulated conv (+ optional upsample) -> fused lrelu.
+def _modulation(p, wa, demodulate: bool = True):
+    """The ``Modulation`` of the modulated conv ``p["conv"]`` under wa."""
+    c = p["conv"]
+    return modulation(wa, c["weight"], c["modulation"]["weight"],
+                      c["modulation"]["bias"], demodulate, wa.dtype)
+
+
+def _modulations(params, wa, n_levels: int) -> tuple:
+    """Every modulated conv's ``Modulation`` of a decode, from wa alone:
+    conv1's, then each level's (up conv, plain conv, ToFlow)."""
+    return _modulation(params["conv1"], wa), [
+        (_modulation(params["convs"][str(2 * lvl)], wa),
+         _modulation(params["convs"][str(2 * lvl + 1)], wa),
+         _modulation(params["to_flows"][str(lvl)], wa, demodulate=False))
+        for lvl in range(n_levels)]
+
+
+def _styled_conv(xm, mod, p, up: bool, blur_kernel=(1, 3, 3, 1),
+                 scale=None, scale2=None):
+    """StyledConv of an input already modulated by ``mod`` (modulated conv
+    (+ optional upsample) -> fused lrelu), its output modulated by
+    ``scale`` / also by ``scale2`` (``styled_conv2d_pre``).
     NoiseInjection is the identity at inference and is omitted."""
-    return styled_conv2d(
-        x, style, p["conv"]["weight"], p["conv"]["modulation"]["weight"],
-        p["conv"]["modulation"]["bias"], p["activate"]["bias"].reshape(-1),
-        up=up, blur_kernel=blur_kernel)
+    return styled_conv2d_pre(
+        xm, mod.demod, p["conv"]["weight"], p["activate"]["bias"].reshape(-1),
+        up=up, blur_kernel=blur_kernel, scale=scale, scale2=scale2)
 
 
 def _rgb_tail(out, p, skip, blur_kernel):
@@ -81,19 +110,17 @@ def _to_rgb(x, p, skip=None, blur_kernel=(1, 3, 3, 1)):
                      blur_kernel)
 
 
-def _flow_pred(x, style, p, skip, blur_kernel):
-    """ToFlow's prediction: raw out (B, 3, H, W), flow (B, H, W, 2) f32
-    (tanh(out.xy) + the identity grid) and mask sigmoid(out.z) in x's
-    dtype (reference styledecoder.py:399-425)."""
-    out = modulated_conv2d(
-        x, style, p["conv"]["weight"], p["conv"]["modulation"]["weight"],
-        p["conv"]["modulation"]["bias"], demodulate=False)
+def _flow_pred(xm, p, skip, blur_kernel):
+    """ToFlow's prediction from its input already modulated, ``xm``: raw
+    out (B, 3, H, W) and flow (B, H, W, 2) f32 (tanh(out.xy) + the
+    identity grid); its mask is ``flow_mask(out)`` (reference
+    styledecoder.py:399-425)."""
+    out = modulated_conv2d_pre(xm, None, p["conv"]["weight"])
     out = skip_tail(out, skip, p["bias"].reshape(-1), blur_kernel=blur_kernel)
     sampler = torch.tanh(out[:, 0:2].float())
-    mask = torch.sigmoid(out[:, 2:3].float()).to(x.dtype)
     flow = (sampler.permute(0, 2, 3, 1)
-            + identity_grid(x.shape[2], device=x.device)).contiguous()
-    return out, flow, mask
+            + identity_grid(xm.shape[2], device=xm.device)).contiguous()
+    return out, flow
 
 
 def _is_shared(feat_nhwc, b: int) -> bool:
@@ -101,35 +128,40 @@ def _is_shared(feat_nhwc, b: int) -> bool:
     return feat_nhwc.shape[0] == 1 and b != 1
 
 
-def _to_flow(x, style, feat_nhwc, p, skip=None, warps: Warps = DISPATCH,
-             blur_kernel=(1, 3, 3, 1)):
-    """ToFlow: predict (flow xy, mask), warp ``feat_nhwc`` (1 or B, H, W, C)
-    onto each frame's grid (reference styledecoder.py:399-425):
+def _to_flow(x, xm, feat_nhwc, p, skip=None, scale=None,
+             warps: Warps = DISPATCH, blur_kernel=(1, 3, 3, 1)):
+    """ToFlow of the level's map ``x``, whose input ``xm`` is x already
+    modulated: predict (flow xy, mask), warp ``feat_nhwc`` (1 or B, H, W,
+    C) onto each frame's grid (reference styledecoder.py:399-425):
 
       feat_warp = grid_sample(feat, flow) * mask
       merged = feat_warp + x * (1 - mask)
 
-    Returns (feat_warp, merged, raw_out, flow (B, H, W, 2) f32)."""
-    out, flow, mask = _flow_pred(x, style, p, skip, blur_kernel)
-    warp = warps.shared if _is_shared(feat_nhwc, x.shape[0]) \
+    merged comes back modulated by ``scale``, the next level's up conv's;
+    without it (the last level) merged is None and x, which may be None,
+    is not read.  Returns (feat_warp, merged, raw_out, flow (B, H, W, 2)
+    f32)."""
+    out, flow = _flow_pred(xm, p, skip, blur_kernel)
+    warp = warps.shared if _is_shared(feat_nhwc, xm.shape[0]) \
         else warps.per_frame
     warped = warp(feat_nhwc, flow).permute(0, 3, 1, 2)   # NCHW view, CL
-    feat_warp = warped * mask
-    merged = feat_warp + x * (1.0 - mask)
+    feat_warp, merged = flow_merge(warped, out, x, scale)
     return feat_warp, merged, out, flow
 
 
-def _to_flow_rgb(x, style, feat_nhwc, p_flow, p_rgb, skip_flow, skip_rgb,
+def _to_flow_rgb(xm, feat_nhwc, p_flow, p_rgb, skip_flow, skip_rgb,
                  warps: Warps = DISPATCH, blur_kernel=(1, 3, 3, 1)):
     """The last level's ToFlow + ToRGB with the warp and the 1×1 conv in
-    one kernel.  The merged feature is dead at the last level and the 1×1
-    conv is linear over channels, so conv(warp · mask) = mask · conv(warp)
-    (float_tpu ``_packed_warp_rgb``).  Returns (rgb, flow)."""
-    out, flow, mask = _flow_pred(x, style, p_flow, skip_flow, blur_kernel)
+    one kernel, ToFlow's input ``xm`` already modulated.  The merged
+    feature is dead at the last level and the 1×1 conv is linear over
+    channels, so conv(warp · mask) = mask · conv(warp) (float_tpu
+    ``_packed_warp_rgb``).  Returns (rgb, flow)."""
+    out, flow = _flow_pred(xm, p_flow, skip_flow, blur_kernel)
     c = feat_nhwc.shape[-1]
     w0 = p_rgb["conv"]["0"]["weight"].float()             # (3, C, 1, 1)
     wk = (w0[:, :, 0, 0] * (1.0 / math.sqrt(c))).contiguous()
-    rgb = warps.rgb(feat_nhwc, flow, wk).permute(0, 3, 1, 2) * mask
+    rgb = warps.rgb(feat_nhwc, flow, wk).permute(0, 3, 1, 2) \
+        * flow_mask(out, xm.dtype)
     return _rgb_tail(rgb, p_rgb, skip_rgb, blur_kernel), flow
 
 
@@ -152,33 +184,46 @@ def synthesis(params, wa, feats, size: int, warps: Warps = DISPATCH,
     feats_nhwc = [f.to(dtype).contiguous(memory_format=CL).permute(0, 2, 3, 1)
                   for f in feats]
 
+    mod1, mods = _modulations(params, wa, n_levels)
     const = params["input"]["input"]
-    out = const.to(dtype).expand(b, -1, -1, -1).contiguous(memory_format=CL)
-    out = _styled_conv(out, wa, params["conv1"], up=False,
-                       blur_kernel=blur_kernel)
+    xm = modulate(const.to(dtype).expand(b, -1, -1, -1)
+                  .contiguous(memory_format=CL), mod1.scale)
+    # xm: the next conv's input, already modulated
+    xm = _styled_conv(xm, mod1, params["conv1"], up=False,
+                      blur_kernel=blur_kernel, scale=mods[0][0].scale)
 
     skip = None
     skip_flow = None
     flow64 = None
     for lvl in range(n_levels):
-        out = _styled_conv(out, wa, params["convs"][str(2 * lvl)], up=True,
-                           blur_kernel=blur_kernel)
-        out = _styled_conv(out, wa, params["convs"][str(2 * lvl + 1)],
-                           up=False, blur_kernel=blur_kernel)
-        out = out.contiguous(memory_format=CL)
+        m_up, m_plain, m_flow = mods[lvl]
+        last = lvl == n_levels - 1
+        xm = _styled_conv(xm, m_up, params["convs"][str(2 * lvl)], up=True,
+                          blur_kernel=blur_kernel, scale=m_plain.scale)
+        # the level's map x, which the merge reads, and ToFlow's input; at
+        # the last level the merge is dead and x with it
+        p_plain = params["convs"][str(2 * lvl + 1)]
+        if last:
+            x, xm = None, _styled_conv(xm, m_plain, p_plain, up=False,
+                                       blur_kernel=blur_kernel,
+                                       scale=m_flow.scale)
+        else:
+            x, xm = _styled_conv(xm, m_plain, p_plain, up=False,
+                                 blur_kernel=blur_kernel,
+                                 scale2=m_flow.scale)
         feat_l = feats_nhwc[lvl]
-        if (rgb_in_kernel and lvl == n_levels - 1
-                and _is_shared(feat_l, b)):
+        if rgb_in_kernel and last and _is_shared(feat_l, b):
             skip, fl = _to_flow_rgb(
-                out, wa, feat_l, params["to_flows"][str(lvl)],
+                xm, feat_l, params["to_flows"][str(lvl)],
                 params["to_rgbs"][str(lvl)], skip_flow, skip, warps=warps,
                 blur_kernel=blur_kernel)
         else:
-            out_warp, out, skip_flow, fl = _to_flow(
-                out, wa, feat_l, params["to_flows"][str(lvl)], skip_flow,
-                warps=warps, blur_kernel=blur_kernel)
+            nxt = None if last else mods[lvl + 1][0].scale
+            out_warp, xm, skip_flow, fl = _to_flow(
+                x, xm, feat_l, params["to_flows"][str(lvl)], skip_flow,
+                nxt, warps=warps, blur_kernel=blur_kernel)
             skip = _to_rgb(out_warp, params["to_rgbs"][str(lvl)], skip,
                            blur_kernel=blur_kernel)
-        if out.shape[2] == 64:
+        if fl.shape[1] == 64:
             flow64 = fl
     return skip, flow64

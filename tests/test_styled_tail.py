@@ -180,36 +180,59 @@ def small_synthesis(monkeypatch, size=64, b=2, dtype=torch.float32):
 
 
 def test_synthesis_routes_every_tail_through_k7(monkeypatch):
-    """With K7 taking every map, a 64² synthesis (4 levels) sends its 4 x 4
-    - 1 = 15 tails and skips (27 at 512², 7 levels) to the kernel's
-    wrappers with arguments whose plain version is today's decode: here
-    the wrappers run the plain versions, and the frames equal the plain
-    synthesis bit for bit."""
+    """With K7 and K8 taking every map, a 64² synthesis (4 levels) sends
+    its 4 x 4 - 1 = 15 tails and skips (27 at 512², 7 levels) to K7's
+    wrappers and its 4 flow merges (7 at 512²) to K8's, every up tail and
+    every merge but the last with the next conv's modulation, every plain
+    tail after conv1's but the last with ToFlow's as a second output (the
+    last one's only output, since nothing reads the map), and arguments
+    whose plain version is today's decode: here the wrappers run the plain
+    versions, and the frames equal the plain synthesis bit for bit."""
+    from float_torch.kernels import flow_merge as k8
     params, wa, feats = small_synthesis(monkeypatch)
     with torch.inference_mode():
         want, _ = t_syn.synthesis(params, wa, feats, 64)
     calls = []
 
-    def fake_tail(x, demod, bias, up):
-        calls.append(("up" if up else "plain", x.shape[1]))
-        return tails.styled_tail_ref(x, demod, bias,
-                                           (1, 1) if up else None)
+    def fake_tail(x, demod, bias, up, scale=None, scale2=None):
+        calls.append(("up" if up else "plain", x.shape[1],
+                      scale is not None, scale2 is not None))
+        return tails.styled_tail_ref(x, demod, bias, (1, 1) if up else None,
+                                     scale=scale, scale2=scale2)
 
     def fake_skip(x, skip, bias, act_bias=None):
-        calls.append(("rgb" if act_bias is not None else "flow", x.shape[1]))
+        calls.append(("rgb" if act_bias is not None else "flow", x.shape[1],
+                      False, False))
         return tails.skip_tail_ref(x, skip, bias, act_bias)
 
-    monkeypatch.setattr(tails, "_k7_takes", lambda *a: True)
+    def fake_merge(warped, out, x=None, scale=None):
+        calls.append(("merge", warped.shape[1], scale is not None, False))
+        return tails.flow_merge_ref(warped, out, x, scale)
+
+    monkeypatch.setattr(tails, "_on_card", lambda *a: True)
     monkeypatch.setattr(k7, "styled_tail_cuda", fake_tail)
     monkeypatch.setattr(k7, "skip_tail_cuda", fake_skip)
+    monkeypatch.setattr(k8, "flow_merge_cuda", fake_merge)
     with torch.inference_mode():
         got, _ = t_syn.synthesis(params, wa, feats, 64)
     assert torch.equal(got, want)
     n = 4
-    assert len(calls) == 4 * n - 1
-    assert [m for m, _ in calls].count("up") == n
-    assert [m for m, _ in calls].count("plain") == n + 1
-    assert sorted(m for m, c in calls if c == 3) == ["flow"] * 3 + ["rgb"] * 3
+    modes = [m for m, *_ in calls]
+    assert len(calls) == 4 * n - 1 + n
+    assert modes.count("up") == n
+    assert modes.count("plain") == n + 1
+    assert modes.count("merge") == n
+    assert sorted(m for m, c, *_ in calls if c == 3) == \
+        ["flow"] * 3 + ["rgb"] * 3
+    # conv1's tail and each up tail: one output, modulated; each level's
+    # plain tail: its map and ToFlow's input, the last level's ToFlow's
+    # input alone (its merge is dead); each merge but the last
+    assert [(m, s, s2) for m, _c, s, s2 in calls if m != "merge"
+            and _c != 3] == [("plain", True, False)] + [
+        ("up", True, False), ("plain", False, True)] * (n - 1) + [
+        ("up", True, False), ("plain", True, False)]
+    assert [s for m, _c, s, _ in calls if m == "merge"] == \
+        [True] * (n - 1) + [False]
     assert len(chip_smoke.K7_CALLS) == 4 * 7 - 1
 
 
@@ -255,6 +278,37 @@ def test_k7_matches_plain(cuda_device, call, b, dtype):
     check_k7(got, plain32(), x, dtype)
 
 
+TAILS = [call for call in chip_smoke.K7_CALLS if call[0] in ("up", "plain")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,b", [(torch.bfloat16, 24),
+                                     (torch.bfloat16, 12),
+                                     (torch.float32, 8)])
+@pytest.mark.parametrize("call", TAILS,
+                         ids=[f"{m}{s}c{c}" for m, s, c in TAILS])
+def test_k7_writes_the_next_modulation(cuda_device, call, b, dtype):
+    """The modulations the decode has K7 write: conv1's tail and every up
+    tail their output times the next conv's scale, every level's plain
+    tail its output and, as a second output, ToFlow's modulated input;
+    one launch each, both outputs channels_last in x's dtype and within
+    one rounding of the plain version in f32."""
+    mode, size, c = call
+    epilogue = chip_smoke.k7_epilogue(mode, size)
+    gen = torch.Generator(device=cuda_device).manual_seed(size * 3 + c + b)
+    fused, _, plain32, x = chip_smoke.k7_case(gen, mode, size, c, b, dtype,
+                                              epilogue)
+    before = LAUNCHES[k7.NAME]
+    got = fused()
+    assert LAUNCHES[k7.NAME] == before + 1
+    outs = got if epilogue == "scale2" else (got,)
+    assert len(outs) == (2 if epilogue == "scale2" else 1)
+    for g in outs:
+        assert g.shape == (b, c, size, size) and g.dtype == dtype
+        assert g.is_contiguous(memory_format=CL)
+    assert chip_smoke.outputs_error(got, plain32(), x) <= 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("mode,size,c", [("up", 64, 256), ("plain", 64, 256),
@@ -277,10 +331,12 @@ def test_k7_nan_and_odd_channels(cuda_device, mode, size, c, dtype):
 
 @pytest.mark.cuda
 def test_decode_chunk_launches_k7_27_times(cuda_device, monkeypatch):
-    """One 24-frame bf16 chunk of config 1: K7 launches 27 times and no
-    blur kernel is made (so no host-to-device copy of its taps); its
-    frames lie within the bf16 decode tolerance of the plain float32
-    decode, and closer to it on average than the plain bf16 decode's."""
+    """One 24-frame bf16 chunk of config 1: K7 launches 27 times, K8 7
+    times (the last level's without a merged map), and no blur kernel is
+    made (so no host-to-device copy of its taps); its frames lie within
+    the bf16 decode tolerance of the plain float32 decode, and closer to
+    it on average than the plain bf16 decode's."""
+    from float_torch.kernels import flow_merge as k8
     from float_torch.runtime.decode import decode_chunk
     p32 = t_init.ParamTree(t_init.init_synthesis(512)).to(cuda_device)
     p16 = t_init.ParamTree(t_init.init_synthesis(512)).to(cuda_device) \
@@ -295,12 +351,13 @@ def test_decode_chunk_launches_k7_27_times(cuda_device, monkeypatch):
     for mod in (upfirdn, modulated, tails):
         monkeypatch.setattr(mod, "make_blur_kernel",
                             lambda *a, **k: made.append(a) or real(*a, **k))
-    before = LAUNCHES[k7.NAME]
+    before = LAUNCHES[k7.NAME], LAUNCHES[k8.NAME], LAUNCHES[k8.NAME_LAST]
     with torch.inference_mode():
         got = decode_chunk(p16, wa.to(torch.bfloat16), f16, 512)
-    assert LAUNCHES[k7.NAME] - before == 27
+    assert (LAUNCHES[k7.NAME] - before[0], LAUNCHES[k8.NAME] - before[1],
+            LAUNCHES[k8.NAME_LAST] - before[2]) == (27, 6, 1)
     assert made == []
-    monkeypatch.setattr(tails, "_k7_takes", lambda *a: False)
+    monkeypatch.setattr(tails, "_on_card", lambda *a: False)
     with torch.inference_mode():
         plain = decode_chunk(p16, wa.to(torch.bfloat16), f16, 512)
         ref = decode_chunk(p32, wa, f32, 512)

@@ -15,6 +15,7 @@ import torch
 
 from float_torch import kernels
 from float_torch.config import FloatConfig, Wav2Vec2Config
+from float_torch.kernels import flow_merge as k8
 from float_torch.models.init import ParamTree, init_pipeline, init_synthesis
 from float_torch.ops import upfirdn
 from float_torch.runtime import decode
@@ -414,6 +415,75 @@ def test_each_path_replays_the_eager_frames(pipe, clip10, monkeypatch, path):
     assert [s.attrs["graphed"] for s in spans] == [1] * len(spans)
 
 
+def _todays_epilogues(monkeypatch) -> None:
+    """The decode's op sequence before K7 wrote the modulations and K8 the
+    flow merges: K7's tails alone, each modulation and each merge as the
+    plain ops right after them."""
+    from float_torch.kernels import styled_tail as k7
+    from float_torch.ops import tails
+    real = k7.styled_tail_cuda
+
+    def tail(x, demod, bias, up, scale=None, scale2=None):
+        y = real(x, demod, bias, up)
+        y2 = None if scale2 is None else tails.modulate(y, scale2)
+        if scale is not None:
+            y = tails.modulate(y, scale)
+        return y if scale2 is None else (y, y2)
+    monkeypatch.setattr(k7, "styled_tail_cuda", tail)
+    monkeypatch.setattr(k8, "flow_merge_cuda", tails.flow_merge_ref)
+
+
+def _frames(got) -> torch.Tensor:
+    """A path's frames (a tensor, an array or a list of either) as one
+    float tensor in [0, 1] on the host."""
+    if isinstance(got, (list, tuple)):
+        got = torch.cat([_frames(g) for g in got])
+    got = got.cpu() if torch.is_tensor(got) else torch.from_numpy(
+        np.asarray(got))
+    return got.float() / 255.0 if got.dtype == torch.uint8 else got.float()
+
+
+TODAY_PATHS = dict(
+    PATHS,
+    batch=lambda p, c: p.generate_batch(
+        torch.cat([c["img"], c["img"].flip(-1)]),
+        [c["wave"][0], c["wave"][0, :96000]]),
+    one_frame=lambda p, c: decode.decode_latents(
+        p.syn_cast, c["s_r"], c["feats"], c["r_d"][0, :8], size=512,
+        decode_batch=1, compute_dtype=torch.bfloat16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", sorted(TODAY_PATHS))
+def test_each_path_keeps_todays_frames(pipe, clip10, monkeypatch, path):
+    """Each decode path, replayed and eager, against the same decode with
+    every modulation and merge as plain ops after K7 (eager): frames
+    within the bf16 decode tolerance (chip_smoke's ``DECODE_TOL``, the
+    tolerance of a kernel warp against the plain one), the same K1, K3
+    and K7 launches, and K8 once each K1 or K3 warp."""
+    import chip_smoke
+    run = TODAY_PATHS[path]
+
+    def counted():
+        kernels.LAUNCHES.clear()
+        with torch.inference_mode():
+            got = _frames(run(pipe, clip10))
+        return got, dict(kernels.LAUNCHES)
+    run(pipe, clip10)                             # its keys captured
+    graphed, n_graphed = counted()
+    monkeypatch.setattr(decode, "decode_graphs", lambda *a: None)
+    eager, n_eager = counted()
+    _todays_epilogues(monkeypatch)
+    today, n_today = counted()
+    for got, n in ((graphed, n_graphed), (eager, n_eager)):
+        assert got.shape == today.shape
+        assert (got - today).abs().max().item() <= chip_smoke.DECODE_TOL
+        merges = sum(n.pop(k, 0) for k in (k8.NAME, k8.NAME_LAST))
+        assert merges == n.get("warp_shared", 0) + n.get(
+            "warp_per_frame", 0) > 0
+        assert n == n_today
+
+
 @pytest.mark.cuda
 def test_a_ragged_batch_of_two_portraits(card, pipe, monkeypatch):
     """10 s and 6 s of audio, two portraits, one dispatch stream, every
@@ -446,7 +516,8 @@ def test_one_frame_chunks(card, pipe, clip10, monkeypatch):
     eager, n_eager, got, n_got, spans = _eager_and_graphed(monkeypatch, run)
     assert torch.equal(got, eager)
     assert n_got == n_eager
-    assert n_got[0] == {"warp_per_frame": 280, "styled_tail": 1080}
+    assert n_got[0] == {"warp_per_frame": 280, "styled_tail": 1080,
+                        "flow_merge": 240, "flow_merge_last": 40}
     assert [s.attrs["graphed"] for s in spans] == [0] + [1] * 39
 
 
