@@ -33,6 +33,14 @@ wrappers.  Phases:
 3c. K8 (``flow_merge``) at each of the 7 levels of that chunk (the last
    level's without a merged map) the same way; every path below holds K8
    to one launch for each chunk's K1 or K3 warp (none for K2's level);
+3d. K9 (``fmt_block``) in each of its modes at config 1's sampler shapes
+   (3 CFG rows of 60 frames, 1024 wide, 8 heads of 128, MLP 4096) against
+   its plain version in f32, each timed beside its bytes bound and the
+   plain ops it replaces; every path below holds K9 to 1 + 4 x 8 launches
+   a sampler forward (its attention and GELU once a model rank), some on
+   a path that samples and none on one that does not, and config 1's
+   sampler in its other CFG modes, with a dynamic we and in bf16 to 297 a
+   chunk;
 4. the port on the card against the port on the CPU at a tiny config in
    float32 (TF32 off), stage by stage;
 5. BASELINE config 1 end to end: 617.5 M synthetic parameters, a 512²
@@ -218,6 +226,13 @@ K8_CALLS = tuple(("merge", s, c) for s, c in LEVELS[:-1]) + (
     ("last",) + LEVELS[-1],)
 K8_OPS = {"merge": 5, "last": 1}
 K8_PIXEL_OPS = 4
+# K9's modes at config 1's sampler shapes: B CFG rows (3-way) of N frames,
+# D wide, H heads of D / H, an MLP of F; a forward's calls of each mode
+# (one ln_mod, then per block two gated residuals, the attention and the
+# GELU) and its forwards a chunk (nfe - 1 Euler steps)
+K9_SHAPE = dict(b=3, n=60, d=1024, heads=8, f=4096)
+K9_CALLS = {"ln_mod": 1, "gate_res_ln_mod": 16, "attn": 8, "bias_gelu": 8}
+K9_FORWARDS = 9
 CUDA = "float_torch/kernels/csrc/"
 ROWS = {   # kernel-table rows: the name the wrapper counts launches under
     "K1": {"name": "warp_shared", "route": "cuda",
@@ -246,6 +261,9 @@ ROWS = {   # kernel-table rows: the name the wrapper counts launches under
     # no TPU kernel: float_tpu leaves the merge to XLA
     "K8": {"name": "flow_merge", "route": "cuda",
            "source": CUDA + "flow_merge.cu", "replaces": None},
+    # no TPU kernel: float_tpu leaves the FMT block's passes to XLA
+    "K9": {"name": "fmt_block", "route": "cuda",
+           "source": CUDA + "fmt_block.cu", "replaces": None},
 }
 NEW_KERNELS = ("warp_per_frame", "warp_rgb")
 # Tolerances.  K1, K3 and K5 round every product and sum in their plain
@@ -813,6 +831,101 @@ def phase_flow_merge(gen: torch.Generator) -> dict:
     return dict(row.json(), max_err=max_err, calls=calls)
 
 
+def k9_case(gen: torch.Generator, mode: str, b: int):
+    """One K9 call of ``mode`` at config 1's sampler shapes with ``b`` CFG
+    rows, on random values: (the kernel's call, the plain version's)."""
+    from float_torch.kernels import fmt_block as k9
+    from float_torch.models.fmt import alignment_bias
+    from float_torch.ops import fmt_block as ops
+    n, d, heads, f = (K9_SHAPE[k] for k in ("n", "d", "heads", "f"))
+
+    def r(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=gen, device="cuda")
+    if mode == "attn":
+        args = (r(b, n, 3 * d), r(3 * d, scale=0.1),
+                alignment_bias(n, n, 2, torch.device("cuda")), heads)
+        return lambda: k9.attn_cuda(*args), lambda: ops.attn_ref(*args)
+    if mode == "bias_gelu":
+        args = (r(b, n, f), r(f, scale=0.1))
+        return (lambda: k9.bias_gelu_cuda(*args),
+                lambda: ops.bias_gelu_ref(*args))
+    mod, mb = r(b, n, 6 * d, scale=0.3).chunk(6, -1), r(
+        6 * d, scale=0.1).chunk(6)
+    if mode == "ln_mod":
+        args = (r(b, n, d), mod[0], mb[0], mod[1], mb[1])
+        return lambda: k9.ln_mod_cuda(*args), lambda: ops.ln_mod_ref(*args)
+    args = (r(b, n, d), r(b, n, d), r(d, scale=0.1), mod[2], mb[2], mod[3],
+            mb[3], mod[4], mb[4])
+    return (lambda: k9.gate_res_ln_mod_cuda(*args),
+            lambda: ops.gate_res_ln_mod_ref(*args))
+
+
+def k9_bound(mode: str, b: int):
+    """Bound of one K9 call: f32 inputs read once and outputs written
+    once (an adaLN slice, a bias, a (B, N, D) map each once), and for the
+    attention its q.k and p.v multiply-adds."""
+    n, d, heads, f = (K9_SHAPE[k] for k in ("n", "d", "heads", "f"))
+    rows = b * n
+    if mode == "attn":
+        floats, ops = 4 * rows * d + 3 * d + n * n, 4 * b * n * n * d
+    elif mode == "bias_gelu":
+        floats, ops = 2 * rows * f + f, 8 * rows * f
+    elif mode == "ln_mod":
+        floats, ops = 4 * rows * d + 2 * d, 10 * rows * d
+    else:
+        floats, ops = 7 * rows * d + 4 * d, 14 * rows * d
+    return bound(4 * floats, ops)
+
+
+# K9 against its plain version in f32, relative to max|plain| of the output
+# (tests/test_fmt_fused.py's tolerances and their reasons): the ln modes
+# and the attention 1e-5, the GELU 1e-6; x' of gate_res_ln_mod bit for bit
+K9_TOL = {"ln_mod": 1e-5, "gate_res_ln_mod": 1e-5, "attn": 1e-5,
+          "bias_gelu": 1e-6}
+
+
+def k9_error(mode: str, got, want) -> float:
+    """max|K9 - plain| / max|plain| of the output (the modulated LN for
+    gate_res_ln_mod, whose x' has to equal the plain x' bit for bit)."""
+    if mode == "gate_res_ln_mod":
+        check(torch.equal(got[0], want[0]),
+              "fmt_block gate_res_ln_mod: x' differs from the plain x'")
+        got, want = got[1], want[1]
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def phase_fmt_block(gen: torch.Generator) -> dict:
+    """K9's row: each mode at config 1's 3-way shapes against its plain
+    version in f32 (``K9_TOL``), then timed beside its bound and the plain
+    ops it replaces, summed over a sampler forward's 33 calls.  No one
+    PyTorch call does a mode's work, so the row has no library time."""
+    row, calls, max_err = Row(), [], 0.0
+    b = K9_SHAPE["b"]
+    for mode, count in K9_CALLS.items():
+        kernel, plain = k9_case(gen, mode, b)
+        err = k9_error(mode, kernel(), plain())
+        max_err = max(max_err, err / K9_TOL[mode])
+        check(err <= K9_TOL[mode], f"fmt_block {mode}: {err:.3g} of max|plain| "
+              f"from the plain version in f32, over {K9_TOL[mode]}")
+        ms, p = graph_ms(kernel, iters=200), graph_ms(plain, iters=200)
+        bnd = k9_bound(mode, b)
+        for _ in range(count):
+            row.add(ms, p, 0.0, bnd)
+        calls.append({"mode": mode, "calls": count, "ms": ms, "plain_ms": p,
+                      "bound_ms": bnd[0], "bound_by": bnd[1], "error": err})
+        log(f"[kernel] fmt_block {mode} B={b} N={K9_SHAPE['n']} f32: kernel "
+            f"{ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}), "
+            f"{bnd[0] / ms:.1%} of bound; plain {p:.4f} ms ({p / ms:.2f}x); "
+            f"{count} a forward; error {err:.3g} of max|plain|")
+    bnd = sum(row.bound.values())
+    log(f"[kernel] one 3-way sampler forward's {sum(K9_CALLS.values())} K9 "
+        f"calls: kernel {row.ms:.4f} ms, plain {row.plain_ms:.4f} ms, bound "
+        f"{bnd:.4f} ms; a chunk ({K9_FORWARDS} forwards) {row.ms * K9_FORWARDS:.3f}"
+        f" ms against {row.plain_ms * K9_FORWARDS:.3f} ms plain")
+    # max_err: the largest error as a share of its mode's tolerance
+    return dict(row.json(), library_ms=None, max_err=max_err, calls=calls)
+
+
 def phase_kernel_variants(gen: torch.Generator, parent=None) -> dict:
     """K3 (bit for bit), K2 and K4's shapes against their plain versions
     on every grid kind, then their rows of the kernel table at config-1
@@ -1010,13 +1123,13 @@ def phase_experiments(gen: torch.Generator, parent=None) -> dict:
     run_path("experiment warp_selection_matmul", lambda: [
         ws.warp_bilinear_windowed(maps[size].permute(0, 3, 1, 2),
                                   smooth[size]) for size, _ in K5_LEVELS],
-             {"warp_window": len(K5_LEVELS)}, 0)
+             {"warp_window": len(K5_LEVELS)}, 0, sampled=False)
     calls = [(fb.make(dtype, acc), torch.ones((fb.TILES, *fb.TILE),
                                                dtype=dtype, device="cuda"))
              for _, dtype, acc in fb.VARIANTS]
     run_path("experiment fma_dtype_bench",
              lambda: [run(x) for run, x in calls],
-             {"fma_dtype": len(fb.VARIANTS)}, 0)
+             {"fma_dtype": len(fb.VARIANTS)}, 0, sampled=False)
 
     rows = {"K5": Row(), "K6": Row()}
     levels = []
@@ -1227,6 +1340,12 @@ def phase_config1() -> dict:
     check(not any(launches.get(k, 0) for k in NEW_KERNELS),
           f"the default generate launched {launches}, expected only "
           f"warp_shared")
+    n_sample = math.ceil(t_frames / cfg.num_frames_for_clip)
+    per_chunk = K9_FORWARDS * sum(K9_CALLS.values())
+    check(k9_launches(launches) == per_chunk * n_sample
+          and k9_launches_fit(launches),
+          f"K9 launched {k9_launches(launches)} times in the timed run, "
+          f"expected {per_chunk} for each of {n_sample} sampler chunks")
     rerun = (frames - staged).abs().max().item()
     log(f"[config1] timed run vs stage-by-stage run: max|diff| {rerun:.3e}")
     check(rerun <= DECODE_TOL, f"generate vs stage chain differ by {rerun}")
@@ -1352,10 +1471,36 @@ def k8_launches_fit(launches: dict) -> bool:
             == (len(LEVELS) - 1) * chunks)
 
 
-def run_path(name: str, fn, want: dict, want_k4: int):
+def k9_names() -> tuple:
+    from float_torch.kernels import fmt_block
+    return fmt_block.NAMES
+
+
+def k9_launches(launches: dict) -> int:
+    return sum(launches.get(k, 0) for k in k9_names())
+
+
+def k9_launches_fit(launches: dict, sampled: bool | None = None) -> bool:
+    """Each sampler forward of config 1's FMT (8 blocks) launches K9's
+    ln_mod once and, each block, two gated residuals and the attention
+    and the GELU once a model rank, in every sampler dtype; ``sampled``:
+    the path ran the sampler on the card (K9 launched) or did not (none),
+    None where the count alone decides."""
+    from float_torch.kernels import fmt_block as k9
+    depth = 8
+    ln, res, att, gelu = (launches.get(k, 0) for k in (
+        k9.LN_MOD, k9.GATE_RES_LN_MOD, k9.ATTN, k9.BIAS_GELU))
+    return (res == 2 * depth * ln and att == gelu
+            and att % max(depth * ln, 1) == 0 and (att > 0) == (ln > 0)
+            and (sampled is None or sampled == (ln > 0)))
+
+
+def run_path(name: str, fn, want: dict, want_k4: int,
+             sampled: bool | None = None):
     """Run ``fn`` with every launch count at 0 before it; check the counts
-    read right after against ``want`` (kernels not named must be 0) and
-    the warp_shared launches at K4's shapes against ``want_k4``.
+    read right after against ``want`` (kernels not named must be 0), the
+    warp_shared launches at K4's shapes against ``want_k4`` and K9's
+    against ``k9_launches_fit(..., sampled)``.
     Returns (result, seconds, counts)."""
     from float_torch.kernels import LAUNCH_SHAPES, LAUNCHES
     LAUNCHES.clear()
@@ -1374,14 +1519,21 @@ def run_path(name: str, fn, want: dict, want_k4: int):
           f"{name}: flow_merge launches {[got.get(k, 0) for k in k8_names()]}, "
           f"expected one for each decode chunk's K1 or K3 warp, the last "
           f"level's without a merged map")
-    for k in ("styled_tail",) + k8_names():
+    k9 = {k: got.get(k, 0) for k in k9_names()}
+    check(k9_launches_fit(got, sampled),
+          f"{name}: K9 launches {k9}, expected 1 + 4 x 8 a sampler forward "
+          f"(attention and GELU once a model rank)"
+          + {True: ", and some", False: ", and none", None: ""}[sampled])
+    for k in ("styled_tail",) + k8_names() + k9_names():
         got.pop(k, None)
     check(got == {k: v for k, v in want.items() if v},
           f"{name}: launches {got}, expected {want}")
     check(k4 == want_k4,
           f"{name}: {k4} launches at K4's shapes, expected {want_k4}")
     log(f"[path] {name}: {secs * 1e3:.1f} ms, launches {got}, of which at "
-        f"K4's shapes (C <= 32, B % 4 == 0) {k4}")
+        f"K4's shapes (C <= 32, B % 4 == 0) {k4}; K9 {sum(k9.values())} "
+        f"({sum(k9.values()) / (K9_FORWARDS * sum(K9_CALLS.values())):g} "
+        f"sampler chunks' worth)")
     return out, secs, got
 
 
@@ -1462,14 +1614,15 @@ def phase_paths(c1: dict) -> dict:
         f" {ms[True]} vs {ms[False]} ms")
     out, _, counts["rgb_in_kernel"] = run_path(
         "decode rgb_in_kernel=True", lambda: decode(rgb_in_kernel=True),
-        {"warp_shared": (n_lv - 1) * n_chunks, "warp_rgb": n_chunks}, 0)
+        {"warp_shared": (n_lv - 1) * n_chunks, "warp_rgb": n_chunks}, 0,
+        sampled=False)
     check_frames("decode rgb_in_kernel=True", out, frames, DECODE_TOL)
     out_of_order("decode rgb_in_kernel=True", out, frames, DECODE_TOL)
 
     # one-frame decode chunks: every level warps per frame (K3)
     out, secs, counts["decode_batch=1"] = run_path(
         "decode decode_batch=1", lambda: decode(decode_batch=1),
-        {"warp_per_frame": n_lv * t_frames}, 0)
+        {"warp_per_frame": n_lv * t_frames}, 0, sampled=False)
     log(f"[path] decode_batch=1: {t_frames} frames in {secs:.3f} s, "
         f"{t_frames / secs:.2f} frames/s")
     check_frames("decode decode_batch=1", out, frames, DECODE_TOL)
@@ -1477,7 +1630,7 @@ def phase_paths(c1: dict) -> dict:
 
     out, _, counts["decode_to_host"] = run_path(
         "decode_to_host", lambda: pipe.decode_to_host(s_r, feats, r_d),
-        {"warp_shared": n_lv * n_chunks}, n_chunks)
+        {"warp_shared": n_lv * n_chunks}, n_chunks, sampled=False)
     check_frames("decode_to_host", out, frames, DECODE_TOL + U8_STEP)
     out_of_order("decode_to_host", out, frames, DECODE_TOL + U8_STEP)
     # the gate's other control: generate's first chunk decoded again with
@@ -1507,7 +1660,7 @@ def phase_paths(c1: dict) -> dict:
     for wire in ("u8", "yuv420"):
         (parts, ttfc, total), _, counts[f"stream {wire}"] = run_path(
             f"generate_stream wire={wire}", lambda: stream(wire),
-            {"warp_shared": n_lv * n_disp}, n_disp)
+            {"warp_shared": n_lv * n_disp}, n_disp, sampled=True)
         log(f"[path] generate_stream wire={wire} first_chunk=4: first chunk "
             f"({parts[0].shape[0]} frames) after {ttfc * 1e3:.1f} ms, all "
             f"{t_frames} frames after {total * 1e3:.1f} ms")
@@ -1537,7 +1690,7 @@ def phase_paths(c1: dict) -> dict:
     n_b = n_chunks + math.ceil(t2 / pipe.cfg.decode_batch)
     outs, secs, counts["generate_batch"] = run_path(
         "generate_batch 10 s + 6 s", lambda: pipe.generate_batch(imgs, waves),
-        {"warp_shared": n_lv * n_b}, n_b)
+        {"warp_shared": n_lv * n_b}, n_b, sampled=True)
     log(f"[path] generate_batch: {t_frames + t2} frames in {secs:.3f} s, "
         f"{(t_frames + t2) / secs:.2f} frames/s")
     with torch.inference_mode():
@@ -1548,6 +1701,62 @@ def phase_paths(c1: dict) -> dict:
                  DECODE_TOL + U8_STEP)
     check_frames("generate_batch clip 1", outs[1], ref2, DECODE_TOL + U8_STEP)
     c1["batch"] = (imgs, waves, outs)
+    return counts
+
+
+def phase_sampler_paths(c1: dict) -> dict:
+    """Config 1's sampler in its 3-way, 4-way and skip CFG modes, with a
+    dynamic we (config 4's) and in bf16 (config 3's sampler_dtype A/B),
+    each replayed: K9's launches, 297 a chunk."""
+    from float_torch.runtime import sampling
+    pipe = c1["pipe"]
+    cfg = pipe.cfg
+    sdt = pipe.sampler_dtype
+    with torch.inference_mode():
+        _s_r, _lam, _feats, r_s = pipe.encode_image(c1["img"])
+        t_frames = c1["r_d"].shape[1]
+        wa = pipe.encode_audio(c1["wave"], t_frames).to(sdt)
+        we = pipe.emotion_latent(c1["wave"], "none").to(sdt)
+        r_s = r_s.to(sdt)
+    n_chunks = math.ceil(t_frames / cfg.num_frames_for_clip)
+    per_chunk = K9_FORWARDS * sum(K9_CALLS.values())
+    ones = dict(a_cfg_scale=1.0, e_cfg_scale=1.0, r_cfg_scale=1.0)
+    modes = {"3way": (cfg, {}, we), "4way": (
+        cfg.replace(include_r_cfg=True), dict(r_cfg_scale=1.5), we),
+        "skip": (cfg, ones, we),
+        "dynamic we": (cfg, {}, we.expand(-1, t_frames, -1).contiguous()),
+        "bf16": (cfg, {}, we)}
+    counts, outs = {}, {}
+    for mode, (c, scales, w) in modes.items():
+        dt = torch.bfloat16 if mode == "bf16" else sdt
+
+        def sample():
+            with torch.inference_mode():
+                return sampling.sample_motion_latents(
+                    pipe.params["fmt"], r_s.to(dt), wa.to(dt), w.to(dt),
+                    cfg=c,
+                    **dict(dict(a_cfg_scale=cfg.a_cfg_scale,
+                                e_cfg_scale=cfg.e_cfg_scale,
+                                r_cfg_scale=cfg.r_cfg_scale), **scales),
+                    generator=torch.Generator(device=pipe.device
+                                              ).manual_seed(15))
+        sample()                                     # its graph captured
+        outs[mode], secs, n = run_path(f"sampler {mode}", sample, {}, 0,
+                                       sampled=True)
+        got = k9_launches(PATHS[f"sampler {mode}"])
+        counts[f"sampler {mode}"] = n
+        check(got == per_chunk * n_chunks,
+              f"sampler {mode}: K9 launched {got} times, expected "
+              f"{per_chunk} for each of {n_chunks} chunks")
+        log(f"[path] sampler {mode}: {n_chunks} chunks in {secs * 1e3:.1f} "
+            f"ms, K9 {got}")
+    # the bf16 sampler within tests/test_serving.py's bf16 integration
+    # floor of the f32 one: max|diff| < 0.1 max|f32|
+    ref = outs["3way"].float()
+    err = ((outs["bf16"].float() - ref).abs().max() / ref.abs().max()).item()
+    log(f"[path] sampler bf16 against f32: max|diff| {err:.3e} of max|f32|")
+    check(err < 0.1, f"sampler bf16: {err:.3g} of max|f32| from the f32 "
+          f"sampler")
     return counts
 
 
@@ -1641,7 +1850,7 @@ def phase_regular_graph(c1: dict, root: Path, n_chunks: int) -> dict:
     with NodeTimes() as node_secs:
         (results, ctx), secs, counts = run_path(
             "graph_regular.json", lambda: run_comfy_workflow(wf, ctx),
-            {"warp_shared": len(LEVELS) * n_chunks}, n_chunks)
+            {"warp_shared": len(LEVELS) * n_chunks}, n_chunks, sampled=True)
     log(f"[graph] graph_regular.json: {secs:.3f} s wall, from the checkpoint "
         f"file (LoadFloatModelsOpt) to the frames on the host"
         + (f" and {ctx.artifacts[0]}" if ctx.artifacts else "")
@@ -1682,7 +1891,7 @@ def phase_advanced(reg: dict, n_chunks: int) -> dict:
 
     (frames, r_d), secs, counts = run_path(
         "advanced tier", tier, {"warp_shared": len(LEVELS) * n_chunks},
-        n_chunks)
+        n_chunks, sampled=True)
     log(f"[tier] advanced: {secs:.3f} s for {frames.shape[0]} frames")
     check_frames("advanced tier", frames, reg["frames"], DECODE_TOL + U8_STEP,
                  "graph_regular.json")
@@ -1859,7 +2068,7 @@ def phase_very_advanced(reg: dict, parts: Path) -> dict:
 
     (frames, we_dyn, seq, app, r_d), secs, counts = run_path(
         "very advanced tier", tier, {"warp_shared": len(LEVELS) * va_chunks},
-        va_chunks)
+        va_chunks, sampled=True)
     log(f"[tier] very advanced: {secs:.3f} s for the eight apply nodes, "
         f"{frames.shape[0]} frames decoded in float32, {va_chunks} chunks of "
         f"{fb}; dynamic emotion {tuple(we_dyn.shape)} from {seq.shape[1]} "
@@ -2017,7 +2226,7 @@ def phase_serve(c1: dict, reg: dict, root: Path, unified: str) -> None:
 
         got, secs, _ = run_path(
             "/v1/generate", lambda: run_client("generate", url, root),
-            {"warp_shared": n_lv * n_chunks}, n_chunks)
+            {"warp_shared": n_lv * n_chunks}, n_chunks, sampled=True)
         mp4 = root / "generate.mp4"
         n = mp4_frames(mp4)
         log(f"[serve] /v1/generate: {got['total']:.3f} s at the client "
@@ -2060,7 +2269,7 @@ def phase_serve(c1: dict, reg: dict, root: Path, unified: str) -> None:
             got, _, _ = run_path(
                 f"/v1/generate stream {enc}",
                 lambda: run_client(f"stream-{enc}", url, root),
-                {"warp_shared": n_lv * n_stream}, n_stream)
+                {"warp_shared": n_lv * n_stream}, n_stream, sampled=True)
             frames = np.load(root / f"stream-{enc}.npy")
             wire = "u8" if enc == "raw" else "yuv420"
             local, l_ttfc, l_total = local_stream(wire)
@@ -2132,7 +2341,7 @@ def phase_serve(c1: dict, reg: dict, root: Path, unified: str) -> None:
         got, _, _ = run_path(
             "/v1/generate_batch 10 s + 6 s",
             lambda: run_client("batch", url, root),
-            {"warp_shared": n_lv * n_b}, n_b)
+            {"warp_shared": n_lv * n_b}, n_b, sampled=True)
         counts = [(n, mp4_frames(root / f"batch{i}.mp4"))
                   for i, n in enumerate(got["frames"])]
         log(f"[serve] /v1/generate_batch: {got['total']:.3f} s at the client, "
@@ -2528,6 +2737,7 @@ def main() -> int:
     rows = {"K1": phase_kernels(gen, parent)}
     rows["K7"] = phase_styled_tail(gen)
     rows["K8"] = phase_flow_merge(gen)
+    rows["K9"] = phase_fmt_block(gen)
     rows.update(phase_kernel_variants(gen, parent))
     t0 = time.perf_counter()
     rows.update(phase_experiments(gen, parent))
@@ -2536,6 +2746,7 @@ def main() -> int:
     c1 = phase_config1()
     phase_decode_graphs(c1)
     counts = phase_paths(c1)
+    counts.update(phase_sampler_paths(c1))
     t0 = time.perf_counter()
     phase_mesh(c1)
     log(f"[mesh] phase {time.perf_counter() - t0:.1f} s")
@@ -2558,15 +2769,17 @@ def main() -> int:
                     "warp_window", 0),
                 "K6": PATHS["experiment fma_dtype_bench"].get("fma_dtype", 0),
                 "K7": c1["launches"].get("styled_tail", 0),
-                "K8": k8_launches(c1["launches"])}
+                "K8": k8_launches(c1["launches"]),
+                "K9": k9_launches(c1["launches"])}
     if FAILURES:
         log(f"chip_smoke: {len(FAILURES)} check(s) failed")
         return 1
     names = {"K1": "warp_shared", "K2": "warp_rgb", "K3": "warp_per_frame",
              "K4": "K4", "K5": "warp_window", "K6": "fma_dtype",
-             "K7": "styled_tail", "K8": k8_names()}
+             "K7": "styled_tail"}
+    summed = {"K8": k8_launches, "K9": k9_launches}
     kernels = [dict(ROWS[k], launches=launches[k], **rows[k],
-                    launches_by_path={p: k8_launches(c) if k == "K8"
+                    launches_by_path={p: summed[k](c) if k in summed
                                       else c.get(names[k], 0)
                                       for p, c in PATHS.items()})
                for k in ROWS]

@@ -22,10 +22,11 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "float_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # every kernel library of the package, one per csrc/<name>.cu: the
-# decode's warps, styled tails and flow merge, then the two experiments'
-# kernels
-DECODE_SOURCES = ("warp_shared", "warp_rgb", "styled_tail", "flow_merge")
-SOURCES = DECODE_SOURCES + ("warp_window", "fma_dtype")
+# decode's warps, styled tails and flow merge and the sampler's FMT block
+# passes, then the two experiments' kernels
+PIPELINE_SOURCES = ("warp_shared", "warp_rgb", "styled_tail", "flow_merge",
+                    "fmt_block")
+SOURCES = PIPELINE_SOURCES + ("warp_window", "fma_dtype")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
 

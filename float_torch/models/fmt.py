@@ -7,6 +7,11 @@ adaLN_modulation.1}, decoder.{adaLN_modulation.1, linear}.  The position
 table and the alignment mask are functions of the config, built here.
 
 Attention is matmul + softmax with the additive banded alignment bias.
+The linears are products without their biases; the passes between them
+(``ops.fmt_block``: LN + modulate, attention, bias + GELU, the gated
+residuals) add each bias, by K9 on a card and by the plain ops, which are
+the same ops a biased linear gave, anywhere else.  silu(c) is made once a
+forward for every block and the head.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.fmt_block import BlockOps, block_ops
 from ..parallel.sharding import row_parallel
 
 
@@ -58,9 +64,14 @@ def _linear(p, x):
     return F.linear(x, p["weight"].to(x.dtype)) + p["bias"].to(x.dtype)
 
 
-def _layer_norm(x, eps=1e-6):
-    """Non-affine LayerNorm (elementwise_affine=False)."""
-    return F.layer_norm(x.float(), (x.shape[-1],), eps=eps).to(x.dtype)
+def _product(p, x):
+    """``p``'s linear without its bias, which the pass reading the product
+    adds (``ops.fmt_block``)."""
+    return F.linear(x, p["weight"].to(x.dtype))
+
+
+def _bias(p, x):
+    return p["bias"].to(x.dtype)
 
 
 def timestep_embedding(t, dim: int, max_period: float = 10000.0):
@@ -78,55 +89,63 @@ def _t_embedder(p, t):
     return _linear(p["mlp"]["2"], h)
 
 
-def _modulate(x, shift, scale):
-    return x * (1 + scale) + shift
-
-
-def _heads(p_qkv, x, bias, heads: int):
-    """Attention of the ``heads`` heads whose q, k and v rows ``p_qkv``
-    holds -> (B, N, heads * hd), the input of ``proj``."""
-    b, n, _ = x.shape
-    hd = p_qkv["weight"].shape[0] // (3 * heads)
-    qkv = _linear(p_qkv, x).reshape(b, n, 3, heads, hd)
-    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))  # (B, H, N, hd)
-    logits = (q @ k.transpose(-1, -2)).float() / math.sqrt(hd) + bias
-    att = torch.softmax(logits, dim=-1).to(x.dtype)
-    return (att @ v).transpose(1, 2).reshape(b, n, heads * hd)
-
-
-def _attention(p, x, bias, num_heads: int):
+def _attention(p, xm, bias, num_heads: int, ops: BlockOps):
+    """(proj's output, its bias or None where the output holds it) of the
+    attention on the modulated input xm."""
     shards = getattr(p, "tp_shards", None)
     if shards:                 # one head group a model rank (parallel/)
         heads = num_heads // len(shards)
-        return row_parallel(shards, x, lambda s, xs: F.linear(
-            _heads(s["qkv"], xs, bias.to(xs.device), heads),
-            s["proj"]["weight"].to(xs.dtype)), p["proj"]["bias"])
-    return _linear(p["proj"], _heads(p["qkv"], x, bias, num_heads))
+        return row_parallel(shards, xm, lambda s, xs: F.linear(
+            ops.attn(_product(s["qkv"], xs), _bias(s["qkv"], xs),
+                     bias.to(xs.device), heads),
+            s["proj"]["weight"].to(xs.dtype)), p["proj"]["bias"]), None
+    att = ops.attn(_product(p["qkv"], xm), _bias(p["qkv"], xm), bias,
+                   num_heads)
+    return _product(p["proj"], att), _bias(p["proj"], xm)
 
 
-def _mlp(p, x):
+def _mlp(p, xm, ops: BlockOps):
+    """(fc2's output, its bias or None where the output holds it) of the
+    MLP on the modulated input xm."""
     shards = getattr(p, "tp_shards", None)
     if shards:                 # a slice of the hidden width a model rank
-        return row_parallel(shards, x, lambda s, xs: F.linear(
-            F.gelu(_linear(s["fc1"], xs), approximate="tanh"),
-            s["fc2"]["weight"].to(xs.dtype)), p["fc2"]["bias"])
-    return _linear(p["fc2"], F.gelu(_linear(p["fc1"], x), approximate="tanh"))
+        return row_parallel(shards, xm, lambda s, xs: F.linear(
+            ops.bias_gelu(_product(s["fc1"], xs), _bias(s["fc1"], xs)),
+            s["fc2"]["weight"].to(xs.dtype)), p["fc2"]["bias"]), None
+    h = ops.bias_gelu(_product(p["fc1"], xm), _bias(p["fc1"], xm))
+    return _product(p["fc2"], h), _bias(p["fc2"], xm)
 
 
-def _fmt_block(p, x, c, bias, num_heads: int):
-    mod = _linear(p["adaLN_modulation"]["1"], F.silu(c))
-    (shift_msa, scale_msa, gate_msa,
-     shift_mlp, scale_mlp, gate_mlp) = mod.chunk(6, dim=-1)
-    x = x + gate_msa * _attention(
-        p["attn"], _modulate(_layer_norm(x), shift_msa, scale_msa), bias,
-        num_heads)
-    return x + gate_mlp * _mlp(
-        p["mlp"], _modulate(_layer_norm(x), shift_mlp, scale_mlp))
+def _adaln(p, sc, parts: int) -> list:
+    """An adaLN linear on silu(c) cut in ``parts`` slices of the hidden
+    width: [(slice i of the bias-free product, slice i of the bias)]."""
+    return list(zip(_product(p, sc).chunk(parts, dim=-1),
+                    _bias(p, sc).chunk(parts)))
 
 
-def _decoder_head(p, x, c):
-    shift, scale = _linear(p["adaLN_modulation"]["1"], F.silu(c)).chunk(2, -1)
-    return _linear(p["linear"], _modulate(_layer_norm(x), shift, scale))
+def _blocks(params, h, sc, bias, *, depth: int, num_heads: int,
+            ops: BlockOps):
+    """The FMT's blocks and its decoder head on h (B, N, D), sc = silu(c):
+    the velocity.  Each block's linears are products without their biases
+    and ``ops`` the passes between them: LN + modulate of the block's
+    input, the attention, the gated residual with the next LN + modulate
+    (the MLP's input), the GELU, then the gated residual with the next
+    block's LN + modulate (or the head's).  So the adaLN product of block
+    i + 1 is made before block i's last pass."""
+    blocks = [params["blocks"][str(i)] for i in range(depth)]
+    head = params["decoder"]
+    mod = _adaln(blocks[0]["adaLN_modulation"]["1"], sc, 6)
+    xm = ops.ln_mod(h, *mod[0], *mod[1])
+    for i, p in enumerate(blocks):
+        y = _attention(p["attn"], xm, bias, num_heads, ops)
+        h, xm = ops.gate_res_ln_mod(h, *y, *mod[2], *mod[3], *mod[4])
+        nxt = (_adaln(blocks[i + 1]["adaLN_modulation"]["1"], sc, 6)
+               if i + 1 < depth
+               else _adaln(head["adaLN_modulation"]["1"], sc, 2))
+        y = _mlp(p["mlp"], xm, ops)
+        h, xm = ops.gate_res_ln_mod(h, *y, *mod[5], *nxt[0], *nxt[1])
+        mod = nxt
+    return _linear(head["linear"], xm)
 
 
 def fmt_forward(params, t, x, wa, wr, we, prev_x, prev_wa, prev_we, *,
@@ -158,9 +177,10 @@ def fmt_forward(params, t, x, wa, wr, we, prev_x, prev_wa, prev_we, *,
     c = t_emb.to(c.dtype) + c
 
     bias = alignment_bias(total, total, attention_window, h.device)
-    for i in range(depth):
-        h = _fmt_block(params["blocks"][str(i)], h, c, bias, num_heads)
-    return _decoder_head(params["decoder"], h, c)
+    hd = params["blocks"]["0"]["attn"]["qkv"]["weight"].shape[0] // (
+        3 * num_heads)
+    return _blocks(params, h, F.silu(c), bias, depth=depth,
+                   num_heads=num_heads, ops=block_ops(h, hd))
 
 
 def infer_cfg_mode(a_cfg_scale, r_cfg_scale, e_cfg_scale,

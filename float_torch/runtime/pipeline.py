@@ -466,8 +466,8 @@ class FloatPipeline:
 
     def warmup(self, seconds: float = 2.0, first_chunk: int = 8) -> float:
         """Run the serving paths once before the first request: on the
-        card this builds the decode's kernel libraries
-        (``kernels.build.build_all(DECODE_SOURCES)``), lets cuDNN pick its
+        card this builds the sampler's and the decode's kernel libraries
+        (``kernels.build.build_all(PIPELINE_SOURCES)``), lets cuDNN pick its
         algorithms and captures the sampler's and the decode's CUDA graphs
         for the full and first-chunk decode shapes.  One ``generate`` and one ``generate_stream`` per
         serving wire ("u8" raw, "yuv420" JPEG delivery) on seeded inputs of
@@ -476,8 +476,8 @@ class FloatPipeline:
         port."""
         t0 = time.perf_counter()
         if self.device.type == "cuda":
-            from ..kernels.build import DECODE_SOURCES, build_all
-            build_all(DECODE_SOURCES)
+            from ..kernels.build import PIPELINE_SOURCES, build_all
+            build_all(PIPELINE_SOURCES)
         cfg = self.cfg
         gen = torch.Generator().manual_seed(0)
         img = 0.1 * torch.randn((1, 3, cfg.input_size, cfg.input_size),

@@ -23,6 +23,7 @@ from typing import Optional
 import torch
 
 from ..config import FloatConfig
+from ..kernels import CapturedLaunches
 from ..models.fmt import fmt_forward_cfg, infer_cfg_mode
 from ..models.init import ParamTree
 from ..ops import odeint_fixed
@@ -112,7 +113,9 @@ class _ChunkGraph:
     capture, as capturing requires.  The scales are held in float64, as
     the Python numbers they copy are (``fmt._times`` rounds them as a
     kernel rounds a number), so replays give the eager chunk's numbers
-    for any scales."""
+    for any scales.  The kernel launches the capture counted are counted
+    at each replay (``kernels.CapturedLaunches``); the warm-up's, which
+    run on the card, as they run."""
 
     def __init__(self, fmt_params, inputs, scales, kw: dict):
         self.device = inputs[0].device
@@ -133,9 +136,10 @@ class _ChunkGraph:
             with torch.cuda.stream(side):
                 chunk()
             self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(self.graph, stream=side,
-                                  capture_error_mode="thread_local"):
-                self.out = chunk()
+            with CapturedLaunches() as self.launches:
+                with torch.cuda.graph(self.graph, stream=side,
+                                      capture_error_mode="thread_local"):
+                    self.out = chunk()
 
     def __call__(self, inputs, scales) -> torch.Tensor:
         """The chunk's sample on ``inputs`` and ``scales``, in a tensor of
@@ -147,7 +151,7 @@ class _ChunkGraph:
                 for static, v in zip(self.scales, scales):
                     static.fill_(v)
                 self.values = scales
-            self.graph.replay()
+            self.launches.replay(self.graph)
             return self.out.clone()
 
 
